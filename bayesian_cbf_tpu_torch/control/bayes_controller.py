@@ -1,0 +1,189 @@
+"""Probabilistic CLF tracking with Bayes-CBF safety cones, solved as one
+small SOCP per episode per step, batched over episodes.
+
+With the posterior moments vec F(x) ~ N(vec FT^T, Bk kron A), a linear
+functional w of the dynamics has
+    mean  w^T F u_hom = (w^T FT) u_hom,   var = (u_hom^T Bk u_hom)(w^T A w),
+so one posterior evaluation per step yields every cone in closed form.
+
+  variables x = [u (m), relax, t]
+  minimize  t
+  s.t.  || W^(1/2) ([u; relax] - [u_ref; 0]) ||  <=  t          (objective)
+        rho ||A_clc u + b_clc|| <= c_clc^T u + d_clc + relax    (CLC cone)
+        rho ||A_k u + b_k||     <= c_k^T u + d_k                (CBC cones)
+"""
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..safety.cbc import cbc1_safety_factor
+from ..solvers.socp import solve_socp
+from ..utils.linalg import psd_chol_small_ladder
+
+
+class BayesCLFControllerConfig(NamedTuple):
+    u_dim: int = 2
+    clf_gamma: float = 10.0
+    cost_weights: Tuple[float, ...] = (0.33, 0.33, 0.33)
+    ctrl_ref: Tuple[float, ...] = (0.0, 0.0)
+    max_risk: float = 1e-2
+    cbf_gammas: Tuple[float, ...] = ()
+    socp_iters: int = 25
+    feas_tol: float = 1e-4
+    warm_start: bool = False
+    socp_iters_warm: int = 15
+
+    @property
+    def rho(self) -> float:
+        """sqrt(2) erfinv(1 - 2 max_risk)."""
+        return cbc1_safety_factor(self.max_risk)
+
+
+class ControlInfo(NamedTuple):
+    rho: torch.Tensor        # (B,)
+    relax: torch.Tensor      # (B,)
+    pcost: torch.Tensor      # (B,)
+    pres: torch.Tensor       # (B,)
+    dres: torch.Tensor       # (B,)
+    feasible: torch.Tensor   # (B,) bool
+    clc_mean: torch.Tensor   # (B,)
+    clc_var: torch.Tensor    # (B,)
+    cbc_means: torch.Tensor  # (B, n_cbfs)
+    cbc_vars: torch.Tensor   # (B, n_cbfs)
+
+
+def warm_init(cfg: BayesCLFControllerConfig, n_cbfs: int, batch: int,
+              device, dtype):
+    """Cold (x, S, Z) warm-start state, identical to the solver's own
+    cold start: x = 0, S = Z = e per cone."""
+    nvar = cfg.u_dim + 2
+    C, dmax = 2 + n_cbfs, cfg.u_dim + 2
+    e = torch.zeros((batch, C, dmax), dtype=dtype, device=device)
+    e[..., 0] = 1.0
+    return (torch.zeros((batch, nvar), dtype=dtype, device=device), e,
+            e.clone())
+
+
+@lru_cache(maxsize=16)
+def _constants(cfg: BayesCLFControllerConfig, n_cbfs: int, dtype, device):
+    """Per-config constants, made once so the step loop copies nothing
+    from the host: (rho, CLC/CBC signs (C,), u_ref (m,), objective vector
+    (nvar,), objective cone rows [-c_obj; -A_obj] (nvar, nvar) and h)."""
+    m = cfg.u_dim
+    nvar = m + 2
+    wcost = [math.sqrt(w) for w in cfg.cost_weights]
+    G_obj = [[0.0] * nvar for _ in range(nvar)]
+    G_obj[0][m + 1] = -1.0
+    for i in range(m):
+        G_obj[1 + i][i] = -wcost[i]
+    G_obj[m + 1][m] = -wcost[m]
+    h_obj = [0.0] + [-w * r for w, r in zip(wcost[:m], cfg.ctrl_ref)] + [0.0]
+    cobj = [0.0] * (m + 1) + [1.0]
+    kw = dict(dtype=dtype, device=device)
+    return (cfg.rho, torch.tensor([-1.0] + [1.0] * n_cbfs, **kw),
+            torch.tensor(cfg.ctrl_ref, **kw), torch.tensor(cobj, **kw),
+            torch.tensor(G_obj, **kw), torch.tensor(h_obj, **kw))
+
+
+def constraint_cone_terms(cfg: BayesCLFControllerConfig, clf, cbfs,
+                          planner, moments, x, t: int):
+    """(sgn (C,), const (B, C), m_aff (B, C, 1+m), s (B, C), LbT
+    (B, 1+m, 1+m)) of the CLC (row 0, sign -1) and the CBC cones."""
+    FT, Bk, A = moments
+    Lb = psd_chol_small_ladder(Bk, init_jitter=1e-10)
+    LbT = Lb.transpose(-1, -2)
+    V, gclf, ggoal = clf.value_and_grads(x, planner.plan(t))
+    consts = [cfg.clf_gamma * V + ggoal @ planner.dot_plan(t)]
+    ws = [gclf]
+    for cbf, gamma in zip(cbfs, cfg.cbf_gammas):
+        h, gh = cbf.value_and_grad(x)
+        ws.append(gh)
+        consts.append(gamma * h)
+    W = torch.stack(ws, 1)                                   # (B, C, n)
+    sgn = _constants(cfg, len(ws) - 1, x.dtype, x.device)[1]
+    const = torch.stack(consts, 1)                           # (B, C)
+    m_aff = W @ FT                                           # (B, C, 1+m)
+    s = torch.einsum('bci,bij,bcj->bc', W, A, W)
+    return sgn, const, m_aff, s, LbT
+
+
+def controller_socp(cfg: BayesCLFControllerConfig, clf, cbfs, planner,
+                    moments, x, t: int):
+    """The batch of step-t SOCPs: (cobj (nvar,), G (B, M, nvar), h (B, M),
+    dims, terms) with terms = constraint_cone_terms(...)."""
+    m = cfg.u_dim
+    batch = x.shape[0]
+    nvar = m + 2
+    terms = constraint_cone_terms(cfg, clf, cbfs, planner, moments, x, t)
+    sgn, const, m_aff, s, LbT = terms
+    sqrt_s = torch.sqrt(torch.clamp(s, min=0.0))
+    ncon = sgn.shape[0]
+    rho, _, _, cobj, G_obj, h_obj = _constants(cfg, ncon - 1, x.dtype,
+                                               x.device)
+    # a near-zero safety factor degenerates the SOCs to half-spaces,
+    # emitted as 1-dim cones
+    mean_only = rho < 1e-3
+    zeros = x.new_zeros
+    A_norm = zeros((batch, ncon, m + 1, nvar))
+    A_norm[..., :m] = rho * sqrt_s[..., None, None] * LbT[:, None, :, 1:]
+    b_norm = rho * sqrt_s[..., None] * LbT[:, None, :, 0]
+    bfc = zeros((batch, ncon, nvar))
+    bfc[..., :m] = sgn[:, None] * m_aff[..., 1:]
+    bfc[:, 0, m] = 1.0
+    d = sgn * (m_aff[..., 0] + const)
+
+    G_rows = [G_obj.expand(batch, -1, -1)]
+    h_rows = [h_obj.expand(batch, -1)]
+    dims = [m + 2]
+    for ci in range(ncon):
+        if mean_only:
+            G_rows.append(-bfc[:, ci, None])
+            h_rows.append(d[:, ci, None])
+            dims.append(1)
+        else:
+            G_rows.append(torch.cat([-bfc[:, ci, None], -A_norm[:, ci]], 1))
+            h_rows.append(torch.cat([d[:, ci, None], b_norm[:, ci]], 1))
+            dims.append(m + 2)
+    return cobj, torch.cat(G_rows, 1), torch.cat(h_rows, 1), tuple(dims), terms
+
+
+def bayes_clf_control(cfg: BayesCLFControllerConfig, clf, cbfs, planner,
+                      moments, x, t: int, warm=None):
+    """One control step for a batch of episodes via closed-form cones.
+
+    moments: (FT (B, n, 1+m), Bk (B, 1+m, 1+m), A (B, n, n)).  Returns
+    (u (B, m), ControlInfo); with `warm` (previous (x, S, Z)) returns
+    (u, ControlInfo, warm_next) and runs cfg.socp_iters_warm iterations."""
+    m = cfg.u_dim
+    dtype, device = x.dtype, x.device
+    batch = x.shape[0]
+    Bk = moments[1]
+    cobj, G, h, dims, (sgn, const, m_aff, s, _) = controller_socp(
+        cfg, clf, cbfs, planner, moments, x, t)
+    rho, _, uref = _constants(cfg, sgn.shape[0] - 1, dtype, device)[:3]
+    mean_only = rho < 1e-3
+    # mean-only problems are tiny LPs: solved cold at full iterations
+    use_warm = None if mean_only else warm
+    iters = cfg.socp_iters if use_warm is None else cfg.socp_iters_warm
+    sol = solve_socp(cobj, G, h, dims, iters=iters, warm=use_warm)
+    # f32 IPMs plateau near 1e-4 relative primal residual: gate at 5e-3
+    feas_tol = (cfg.feas_tol if dtype == torch.float64
+                else max(cfg.feas_tol, 5e-3))
+    feasible = (sol.pres < feas_tol) & torch.isfinite(sol.x).all(-1)
+    u_opt = torch.where(feasible[:, None], sol.x[:, :m],
+                        uref.expand(batch, m))
+    info = ControlInfo(
+        rho=torch.full((batch,), rho, dtype=dtype, device=device),
+        relax=sol.x[:, m], pcost=sol.pcost, pres=sol.pres, dres=sol.dres,
+        feasible=feasible,
+        clc_mean=sgn[0] * (m_aff[:, 0, 0] + const[:, 0]),
+        clc_var=s[:, 0] * Bk[:, 0, 0],
+        cbc_means=m_aff[:, 1:, 0] + const[:, 1:],
+        cbc_vars=s[:, 1:] * Bk[:, 0, 0, None])
+    if warm is None:
+        return u_opt, info
+    return u_opt, info, (sol.x, sol.s, sol.z)

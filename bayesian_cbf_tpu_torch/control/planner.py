@@ -1,0 +1,60 @@
+"""Piecewise-linear reference planner.
+
+The step index t is a Python int (the rollout's static loop counter), so
+the checkpoint selection happens on the host and `plan(t)` / `dot_plan(t)`
+cost a few tensor ops with no device synchronisation.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class PiecewiseLinearPlanner(NamedTuple):
+    """Two-checkpoint piecewise-linear plan in (x, y, cos th, sin th)
+    space with a 10%-of-horizon lookahead."""
+    p0: torch.Tensor       # (4,) start in embedded space
+    cps_t: tuple           # (2,) checkpoint steps
+    cps_x: torch.Tensor    # (2, 4) checkpoint embedded states
+    numSteps: int
+    dt: float
+
+    @classmethod
+    def create(cls, x0, x_goal, numSteps, dt, frac_time_to_reach_goal=0.7):
+        if numSteps < 3:
+            raise ValueError("numSteps must be >= 3")
+        xdiff = x_goal[:2] - x0[:2]
+        xdiff_n = xdiff / torch.linalg.vector_norm(xdiff)
+        t2 = min(int(numSteps * frac_time_to_reach_goal), numSteps - 1)
+        cp1 = torch.cat([x_goal[:2], xdiff_n])
+        cp2 = torch.cat([x_goal[:2], torch.cos(x_goal[2:]),
+                         torch.sin(x_goal[2:])])
+        p0 = torch.cat([x0[:2], torch.cos(x0[2:]), torch.sin(x0[2:])])
+        return cls(p0=p0, cps_t=(float(t2), float(numSteps)),
+                   cps_x=torch.stack([cp1, cp2]), numSteps=numSteps, dt=dt)
+
+    def _target_step(self, t: int):
+        look = max(int(0.1 * self.numSteps), 1)
+        return min(t + look, self.numSteps)
+
+    def _interval(self, ts):
+        if ts <= self.cps_t[0]:
+            return 0.0, self.p0, self.cps_t[0], self.cps_x[0]
+        return self.cps_t[0], self.cps_x[0], self.cps_t[1], self.cps_x[1]
+
+    def plan(self, t: int):
+        ts = self._target_step(t)
+        prev_t, prev_x, cp_t, cp_x = self._interval(ts)
+        xp = (cp_x - prev_x) * (ts - prev_t) / (cp_t - prev_t) + prev_x
+        return torch.cat([xp[:2], torch.atan2(xp[3:4], xp[2:3])])
+
+    def dot_plan(self, t: int):
+        """Keeps the reference's angular-rate expression, including its
+        (cdot - sdot) numerator, for trajectory parity."""
+        ts = self._target_step(t)
+        prev_t, prev_x, cp_t, cp_x = self._interval(ts)
+        xdiff = (cp_x - prev_x) / ((cp_t - prev_t) * self.dt)
+        wterm = (xdiff[2:3] - xdiff[3:4]) / torch.sum(xdiff[2:4] ** 2)
+        return torch.cat([xdiff[:2], wterm])
+

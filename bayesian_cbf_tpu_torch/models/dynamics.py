@@ -1,0 +1,277 @@
+"""Control-affine dynamics: the Ackermann ground truth / prior mean, and
+the online-learned residual MVGP with shift invariance, batched over
+episodes.  The state of the learner is a NamedTuple of tensors with a
+leading episode axis.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from .mvgp import MVGP, MVGPCache, MVGPData, MVGPParams
+
+
+def _tree_finite(tree) -> torch.Tensor:
+    """(B,) bool: every floating leaf is finite and of sane magnitude
+    (max|a| < 1e8 in f32, 1e14 in f64) in each episode."""
+    ok = None
+    for leaf in _leaves(tree):
+        if not torch.is_floating_point(leaf):
+            continue
+        lim = 1e8 if leaf.dtype == torch.float32 else 1e14
+        flat = leaf.reshape(leaf.shape[0], -1)
+        good = (torch.isfinite(flat).all(-1)
+                & (torch.amax(torch.abs(flat), -1) < lim))
+        ok = good if ok is None else ok & good
+    return ok
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    out = []
+    for t in tree:
+        out.extend(_leaves(t))
+    return out
+
+
+def _map(fn, *trees):
+    """Apply fn leafwise over NamedTuples / tuples of tensors."""
+    t0 = trees[0]
+    if isinstance(t0, torch.Tensor):
+        return fn(*trees)
+    vals = [_map(fn, *parts) for parts in zip(*trees)]
+    return type(t0)(*vals) if hasattr(t0, "_fields") else type(t0)(vals)
+
+
+def where_tree(keep: torch.Tensor, a_tree, b_tree):
+    """Per-episode select over batched trees (keep: (B,) bool)."""
+    def sel(a, b):
+        return torch.where(keep.reshape(keep.shape + (1,) * (a.ndim - 1)),
+                           a, b)
+    return _map(sel, a_tree, b_tree)
+
+
+class AckermannDrive(NamedTuple):
+    """Ackermann car with wheelbase L: xdot = [v cos th, v sin th, w / L],
+    u = [v, w]; f = 0.  `kernel_diag_A` is the prior output covariance."""
+    L: float = 0.2
+    kernel_diag_A: Tuple[float, ...] = (1.0, 1.0, 1.0)
+    state_size: int = 3
+    ctrl_size: int = 2
+
+    def f_func(self, x):
+        return torch.zeros_like(x)
+
+    def g_func(self, x):
+        th = x[:, 2]
+        z = torch.zeros_like(th)
+        inv_l = torch.full_like(th, 1.0 / self.L)
+        return torch.stack([torch.stack([torch.cos(th), z], -1),
+                            torch.stack([torch.sin(th), z], -1),
+                            torch.stack([z, inv_l], -1)], -2)
+
+    def F_func(self, x):
+        return torch.cat([self.f_func(x)[..., None], self.g_func(x)], -1)
+
+    def step(self, x, u, dt):
+        xdot = self.f_func(x) + (self.g_func(x) @ u[..., None])[..., 0]
+        return x + xdot * dt, xdot
+
+
+class LearnedDynState(NamedTuple):
+    """Carry state of the online learner, each leaf (B, ...).  `buf` is
+    the live reservoir; `data` the snapshot the GP was last fitted on."""
+    params: MVGPParams
+    buf: MVGPData
+    data: MVGPData
+    cache: MVGPCache
+    prev_x: torch.Tensor       # (B, n)
+    prev_u: torch.Tensor       # (B, m)
+    have_prev: torch.Tensor    # (B,) bool
+    count_pairs: torch.Tensor  # (B,) int32
+    count_res: torch.Tensor    # (B,) int32
+
+
+class KernelChannels(NamedTuple):
+    """Per-step kernel hyperparameters and posterior variances."""
+    lengthscale: torch.Tensor   # (B, n)
+    outputscale: torch.Tensor   # (B,)
+    A: torch.Tensor             # (B, n, n)
+    B: torch.Tensor             # (B, 1+m, 1+m)
+    Fx_var: torch.Tensor        # (B,)
+    Fxu_var: torch.Tensor       # (B,)
+
+
+class LearnedShiftInvariantDynamics(NamedTuple):
+    """Mean dynamics + learned MVGP residual with translation invariance
+    (x, y zeroed before entering the kernel).  The training set is a
+    fixed-capacity reservoir (Algorithm R); refits run between segments
+    of the rollout on a static schedule."""
+    gp: MVGP
+    mean_dynamics: NamedTuple = AckermannDrive()
+    max_train: int = 200
+    training_iter: int = 100
+    shift_invariant: bool = True
+    train_every_n_steps: int = 20
+    enable_learning: bool = True
+    dt: float = 0.01
+    training_iter_warm: int = 0
+    first_fit_coarse_stride: int = 0
+    first_fit_refine_iter: int = 15
+
+    # ------------------------------------------------------------ state
+
+    def init_state(self, batch: int, generator: torch.Generator, device,
+                   dtype) -> LearnedDynState:
+        params = self.gp.init_params(batch, generator, device, dtype)
+        data = self.gp.empty_data(batch, self.max_train, device, dtype)
+        cache = self.gp.empty_cache(batch, self.max_train, device, dtype)
+        n, m = self.gp.x_dim, self.gp.u_dim
+        kw = dict(device=device)
+        return LearnedDynState(
+            params=params, buf=data, data=data, cache=cache,
+            prev_x=torch.zeros((batch, n), dtype=dtype, **kw),
+            prev_u=torch.zeros((batch, m), dtype=dtype, **kw),
+            have_prev=torch.zeros((batch,), dtype=torch.bool, **kw),
+            count_pairs=torch.zeros((batch,), dtype=torch.int32, **kw),
+            count_res=torch.zeros((batch,), dtype=torch.int32, **kw))
+
+    def _shift_inv(self, x):
+        if not self.shift_invariant:
+            return x
+        return torch.cat([torch.zeros_like(x[..., :-1]), x[..., -1:]], -1)
+
+    # ------------------------------------------------------------ predict
+
+    def moments(self, state: LearnedDynState, x):
+        """Posterior moments (FT (B, n, 1+m), Bk (B, 1+m, 1+m), A (B, n, n))
+        with vec F(x) ~ N(vec FT^T, Bk kron A)."""
+        md = self.mean_dynamics
+        if not self.enable_learning:
+            batch = x.shape[0]
+            A = torch.diag(torch.tensor(md.kernel_diag_A, dtype=x.dtype,
+                                        device=x.device))
+            Bk = torch.eye(1 + self.gp.u_dim, dtype=x.dtype, device=x.device)
+            return (md.F_func(x), Bk.expand(batch, -1, -1),
+                    A.expand(batch, -1, -1))
+        xs = self._shift_inv(x)
+        FT = md.F_func(x) + self.gp.fT_post(state.params, state.data,
+                                            state.cache, xs)
+        Bk = self.gp.Bk_single(state.params, state.data, state.cache, xs, xs)
+        return FT, Bk, state.params.A
+
+    def kernel_channels(self, state: LearnedDynState, moments, u
+                        ) -> KernelChannels:
+        _, Bk, A = moments
+        uh = torch.cat([torch.ones_like(u[:, :1]), u], -1)
+        trA = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
+        if self.enable_learning:
+            p = state.params
+            ls, os_, B = p.lengthscale, p.outputscale, p.B
+        else:
+            batch = u.shape[0]
+            ls = torch.ones((batch, self.gp.x_dim), dtype=A.dtype,
+                            device=A.device)
+            os_ = torch.ones((batch,), dtype=A.dtype, device=A.device)
+            B = torch.eye(1 + self.gp.u_dim, dtype=A.dtype,
+                          device=A.device).expand(batch, -1, -1)
+        uBu = (uh[:, None, :] @ Bk @ uh[:, :, None])[:, 0, 0]
+        return KernelChannels(lengthscale=ls, outputscale=os_, A=A, B=B,
+                              Fx_var=Bk[:, 0, 0] * trA, Fxu_var=uBu * trA)
+
+    # ------------------------------------------------------------ learn
+
+    def record(self, state: LearnedDynState, x, u,
+               j: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None
+               ) -> LearnedDynState:
+        """Push the finite-difference residual of the previous pair into
+        the reservoir and remember (x, u).  `j` (B,) int is the reservoir
+        draw, uniform on [0, count_res]; when absent it is drawn from
+        `generator`."""
+        md = self.mean_dynamics
+        xdot = (x - state.prev_x) / self.dt
+        xprev_si = self._shift_inv(state.prev_x)
+        xdot_mean = md.f_func(xprev_si) + (
+            md.g_func(xprev_si) @ state.prev_u[..., None])[..., 0]
+        resid = xdot - xdot_mean
+
+        cap = self.max_train
+        cr = state.count_res
+        if j is None:
+            hi = torch.clamp(cr + 1, min=1).to(x.dtype)
+            r = torch.rand(cr.shape, generator=generator, dtype=x.dtype,
+                           device=x.device)
+            j = torch.minimum(torch.floor(r * hi).to(torch.int32),
+                              (hi - 1).to(torch.int32))
+        j = j.to(cr.dtype)
+        slot = torch.where(cr < cap, cr, j)
+        accept = state.have_prev & ((cr < cap) | (j < cap))
+        slot = torch.clamp(slot, 0, cap - 1)
+
+        uh = torch.cat([torch.ones_like(state.prev_u[:, :1]), state.prev_u],
+                       -1)
+        hit = (torch.arange(cap, device=x.device)[None, :] == slot[:, None]
+               ) & accept[:, None]                                  # (B, K)
+        buf = state.buf
+        buf = MVGPData(
+            X=torch.where(hit[..., None], xprev_si[:, None], buf.X),
+            UH=torch.where(hit[..., None], uh[:, None], buf.UH),
+            Xdot=torch.where(hit[..., None], resid[:, None], buf.Xdot),
+            mask=torch.where(hit, torch.ones_like(buf.mask), buf.mask))
+        return state._replace(
+            buf=buf, prev_x=x, prev_u=u,
+            have_prev=torch.ones_like(state.have_prev),
+            count_pairs=state.count_pairs + 1,
+            count_res=cr + accept.to(cr.dtype))
+
+    def _refit(self, state: LearnedDynState, params: MVGPParams
+               ) -> LearnedDynState:
+        with torch.no_grad():
+            cache = self.gp.refresh_cache(params, state.buf)
+        new = state._replace(params=params, data=state.buf, cache=cache)
+        ok = _tree_finite((new.params, new.cache))
+        return where_tree(ok, new, state)
+
+    def fit_now(self, state: LearnedDynState,
+                training_iter: Optional[int] = None) -> LearnedDynState:
+        """Refit on the current reservoir and refresh the cache; an
+        episode whose result is not finite keeps its previous state."""
+        params = self.gp.fit(state.params, state.buf,
+                             training_iter=(self.training_iter
+                                            if training_iter is None
+                                            else training_iter))
+        return self._refit(state, params)
+
+    @property
+    def first_fit_twostage(self) -> bool:
+        return self.first_fit_coarse_stride >= 2
+
+    def fit_now_first(self, state: LearnedDynState) -> LearnedDynState:
+        """The first scheduled fit.  Two-stage when first_fit_coarse_stride
+        >= 2: the full Adam budget on buf[::stride], then
+        first_fit_refine_iter iterations on the full buffer."""
+        if not self.first_fit_twostage:
+            return self.fit_now(state)
+        stride = self.first_fit_coarse_stride
+        sub = MVGPData(*(a[:, ::stride] for a in state.buf))
+        params = self.gp.fit(state.params, sub,
+                             training_iter=self.training_iter)
+        params = self.gp.fit(params, state.buf,
+                             training_iter=self.first_fit_refine_iter)
+        return self._refit(state, params)
+
+    @property
+    def first_fit_differs(self) -> bool:
+        return self.warm_refits_differ or self.first_fit_twostage
+
+    @property
+    def warm_refits_differ(self) -> bool:
+        return self.training_iter_warm not in (0, self.training_iter)
+
+    def fit_now_warm(self, state: LearnedDynState) -> LearnedDynState:
+        if not self.warm_refits_differ:
+            return self.fit_now(state)
+        return self.fit_now(state, training_iter=self.training_iter_warm)

@@ -1,0 +1,319 @@
+"""Matrix-variate Gaussian process regression of control-affine dynamics,
+batched over episodes.
+
+    xdot = F(x)^T u_hom,   u_hom = [1; u],   F(x) ~ MN(M, B k(x, x'), A)
+
+so a training observation y_i = F(x_i)^T uh_i has
+cov(y_i, y_j) = k(x_i, x_j) (uh_i^T B uh_j) A.  Every tensor carries a
+leading episode axis B; the training buffer has fixed capacity K with a
+validity mask.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..utils.linalg import cho_solve_small_unrolled, psd_chol_small_ladder
+
+_SQRT2PI_LOG = math.log(2.0 * math.pi)
+
+
+def _softplus(x):
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _inv_softplus(y: float) -> float:
+    return float(math.log(math.expm1(y))) if y < 20 else float(y)
+
+
+def _eye_like(n, t):
+    return torch.eye(n, dtype=t.dtype, device=t.device)
+
+
+class MVGPParams(NamedTuple):
+    """Trainable hyperparameters, each with a leading episode axis.
+
+    A = W_A W_A^T + diag(softplus(raw_vA));  B = W_B W_B^T + diag(softplus(raw_vB));
+    k(x, x') = softplus(raw_outputscale) exp(-1/2 sum_d (dx_d / l_d)^2),
+    l = softplus(raw_lengthscale); mean_M (1+m, n) the prior mean of F."""
+    raw_lengthscale: torch.Tensor   # (B, n)
+    raw_outputscale: torch.Tensor   # (B,)
+    W_A: torch.Tensor               # (B, n, rank_A)
+    raw_vA: torch.Tensor            # (B, n)
+    W_B: torch.Tensor               # (B, 1+m, rank_B)
+    raw_vB: torch.Tensor            # (B, 1+m)
+    mean_M: torch.Tensor            # (B, 1+m, n)
+
+    @property
+    def lengthscale(self):
+        return _softplus(self.raw_lengthscale)
+
+    @property
+    def outputscale(self):
+        return _softplus(self.raw_outputscale)
+
+    @property
+    def A(self):
+        return (self.W_A @ self.W_A.transpose(-1, -2)
+                + torch.diag_embed(_softplus(self.raw_vA)))
+
+    @property
+    def B(self):
+        return (self.W_B @ self.W_B.transpose(-1, -2)
+                + torch.diag_embed(_softplus(self.raw_vB)))
+
+
+class MVGPData(NamedTuple):
+    """Fixed-shape training buffer.  Rows with mask = 0 are inert."""
+    X: torch.Tensor      # (B, K, n)
+    UH: torch.Tensor     # (B, K, 1+m) homogenized controls [1, u]
+    Xdot: torch.Tensor   # (B, K, n) observed residual state derivatives
+    mask: torch.Tensor   # (B, K)
+
+
+class MVGPCache(NamedTuple):
+    """Posterior cache: L = chol(masked Kb), alpha = Kb^{-1} Y, Linv = L^{-1}."""
+    L: torch.Tensor      # (B, K, K)
+    alpha: torch.Tensor  # (B, K, n)
+    Linv: torch.Tensor   # (B, K, K)
+
+
+class MVGP(NamedTuple):
+    """Static model description (shapes and options only)."""
+    x_dim: int
+    u_dim: int
+    rank_A: int
+    rank_B: int
+    jitter: float = 1e-6
+    gamma_prior: Optional[tuple] = None   # (concentration, rate) on lengthscale
+
+    # ---------------------------------------------------------- init
+
+    def init_params(self, batch: int, generator: torch.Generator,
+                    device, dtype) -> MVGPParams:
+        n, mh = self.x_dim, 1 + self.u_dim
+        raw1 = _inv_softplus(1.0)
+        kw = dict(dtype=dtype, device=device)
+        return MVGPParams(
+            raw_lengthscale=torch.full((batch, n), raw1, **kw),
+            raw_outputscale=torch.full((batch,), raw1, **kw),
+            W_A=0.3 * torch.randn((batch, n, self.rank_A),
+                                  generator=generator, **kw),
+            raw_vA=torch.full((batch, n), raw1, **kw),
+            W_B=0.3 * torch.randn((batch, mh, self.rank_B),
+                                  generator=generator, **kw),
+            raw_vB=torch.full((batch, mh), raw1, **kw),
+            mean_M=torch.zeros((batch, mh, n), **kw))
+
+    def empty_data(self, batch: int, capacity: int, device, dtype) -> MVGPData:
+        n, mh = self.x_dim, 1 + self.u_dim
+        kw = dict(dtype=dtype, device=device)
+        return MVGPData(X=torch.zeros((batch, capacity, n), **kw),
+                        UH=torch.zeros((batch, capacity, mh), **kw),
+                        Xdot=torch.zeros((batch, capacity, n), **kw),
+                        mask=torch.zeros((batch, capacity), **kw))
+
+    def empty_cache(self, batch: int, capacity: int, device,
+                    dtype) -> MVGPCache:
+        """Closed-form cache of an empty buffer: L = Linv = I, alpha = 0."""
+        eye = torch.eye(capacity, dtype=dtype, device=device).expand(
+            batch, capacity, capacity).clone()
+        return MVGPCache(L=eye, alpha=torch.zeros(
+            (batch, capacity, self.x_dim), dtype=dtype, device=device),
+            Linv=eye.clone())
+
+    # ---------------------------------------------------------- kernel
+
+    def k_xx(self, params: MVGPParams, X1, X2):
+        """ARD RBF Gram (B, b1, b2) in the broadcast-difference form (the
+        dot-product form cancels catastrophically for nearby points)."""
+        ell = params.lengthscale[:, None, None, :]
+        d = (X1[:, :, None, :] - X2[:, None, :, :]) / ell
+        return params.outputscale[:, None, None] * torch.exp(
+            -0.5 * torch.sum(d * d, -1))
+
+    def k_xx_single(self, params: MVGPParams, x, xp):
+        d = (x - xp) / params.lengthscale
+        return params.outputscale * torch.exp(-0.5 * torch.sum(d * d, -1))
+
+    def gram_kb(self, params: MVGPParams, data: MVGPData):
+        """Kb = Kxx o (UH B UH^T) + nugget I, with the dtype-aware nugget
+        jitter + 10 k eps mean|diag|."""
+        Kxx = self.k_xx(params, data.X, data.X)
+        uBu = data.UH @ params.B @ data.UH.transpose(-1, -2)
+        Kb = Kxx * uBu
+        k = Kb.shape[-1]
+        eps = torch.finfo(Kb.dtype).eps
+        scale = torch.clamp(torch.mean(torch.abs(
+            torch.diagonal(Kb, dim1=-2, dim2=-1)), -1), min=1.0)
+        nug = self.jitter + 10.0 * k * eps * scale
+        return Kb + nug[:, None, None] * _eye_like(k, Kb)
+
+    def residual_Y(self, params: MVGPParams, data: MVGPData):
+        """Y_i = xdot_i - M^T uh_i, zeroed on invalid rows.  (B, K, n)"""
+        return (data.Xdot - data.UH @ params.mean_M) * data.mask[..., None]
+
+    # ---------------------------------------------------------- MLL / fit
+
+    def mll(self, params: MVGPParams, data: MVGPData):
+        """Exact matrix-normal marginal log likelihood per scalar
+        observation, (B,), through the fused Gram + inverse op."""
+        from ..ops.gramsolve import gram_solve_logdet
+        n = self.x_dim
+        kcnt = torch.sum(data.mask, -1)
+        Y = self.residual_Y(params, data)
+        m = data.mask.to(Y.dtype)
+        k = data.X.shape[1]
+        eps = torch.finfo(Y.dtype).eps
+        UB = data.UH @ (params.outputscale[:, None, None] * params.B)
+        diagKb = torch.sum(UB * data.UH, -1)
+        scale = torch.clamp(torch.mean(torch.abs(diagKb), -1), min=1.0)
+        nug = self.jitter + 10.0 * k * eps * scale
+        S, logdet_Kb = gram_solve_logdet(
+            data.X, UB, data.UH, 1.0 / params.lengthscale, nug, m, Y)
+        LA = psd_chol_small_ladder(params.A, init_jitter=self.jitter)
+        G = Y.transpose(-1, -2) @ S
+        quad = torch.diagonal(cho_solve_small_unrolled(LA, G),
+                              dim1=-2, dim2=-1).sum(-1)
+        logdet_A = 2.0 * torch.sum(torch.log(torch.clamp(
+            torch.diagonal(LA, dim1=-2, dim2=-1), min=1e-20)), -1)
+        ll = -0.5 * (quad + n * logdet_Kb + kcnt * logdet_A
+                     + kcnt * n * _SQRT2PI_LOG)
+        if self.gamma_prior is not None:
+            conc, rate = self.gamma_prior
+            ell = params.lengthscale
+            ll = ll + torch.sum((conc - 1.0) * torch.log(ell) - rate * ell, -1)
+        return ll / torch.clamp(kcnt * n, min=1.0)
+
+    def fit(self, params: MVGPParams, data: MVGPData,
+            training_iter: int = 50, lr: float = 0.1) -> MVGPParams:
+        """Adam on the negative MLL, per episode: the optax chain
+        scale_by_adam -> piecewise_constant_schedule (x0.1 at 30/60/80/90%)
+        -> scale(-1), parameters clipped to +-60, and a step rejected per
+        episode (with its Adam state rolled back) when the loss, the
+        gradient or the new parameters are not finite."""
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        boundaries = sorted({int(f * training_iter): 0.1
+                             for f in (0.3, 0.6, 0.8, 0.9)}.items())
+        p = [a.detach() for a in params]
+        mu = [torch.zeros_like(a) for a in p]
+        nu = [torch.zeros_like(a) for a in p]
+        batch = p[0].shape[0]
+        dtype = p[0].dtype
+        count = torch.zeros((batch,), dtype=torch.int32, device=p[0].device)
+
+        def per_ep(mask_b, a):
+            return mask_b.reshape(mask_b.shape + (1,) * (a.ndim - 1))
+
+        def all_finite(a):
+            return torch.isfinite(a).reshape(a.shape[0], -1).all(-1)
+
+        for _ in range(training_iter):
+            leaves = [a.clone().requires_grad_(True) for a in p]
+            with torch.enable_grad():
+                loss = -self.mll(MVGPParams(*leaves), data)
+                grads = torch.autograd.grad(loss.sum(), leaves)
+            loss = loss.detach()
+            count_inc = count + 1
+            cf = count_inc.to(dtype)
+            bc1 = 1 - torch.pow(torch.full_like(cf, b1), cf)
+            bc2 = 1 - torch.pow(torch.full_like(cf, b2), cf)
+            step = torch.full((batch,), lr, dtype=dtype, device=cf.device)
+            for threshold, scale in boundaries:
+                ind = torch.clamp(torch.sign(
+                    (threshold - count).to(dtype)), min=0.0)
+                step = step * ind + (1 - ind) * scale * step
+            ok = torch.isfinite(loss)
+            new = []
+            for a, g, m_, v_ in zip(p, grads, mu, nu):
+                m_n = (1 - b1) * g + b1 * m_
+                v_n = (1 - b2) * g ** 2 + b2 * v_
+                upd = ((m_n / per_ep(bc1, m_n))
+                       / (torch.sqrt(v_n / per_ep(bc2, v_n)) + eps))
+                upd = -(per_ep(step, upd) * upd)
+                a_n = torch.clamp(a + upd, -60.0, 60.0)
+                new.append((a_n, m_n, v_n))
+                ok = ok & all_finite(g) & all_finite(a_n)
+            p = [torch.where(per_ep(ok, a), a_n, a)
+                 for a, (a_n, _, _) in zip(p, new)]
+            mu = [torch.where(per_ep(ok, m_), m_n, m_)
+                  for m_, (_, m_n, _) in zip(mu, new)]
+            nu = [torch.where(per_ep(ok, v_), v_n, v_)
+                  for v_, (_, _, v_n) in zip(nu, new)]
+            count = torch.where(ok, count_inc, count)
+        return MVGPParams(*p)
+
+    # ---------------------------------------------------------- posterior
+
+    def masked_kb(self, params: MVGPParams, data: MVGPData):
+        Kb = self.gram_kb(params, data)
+        m = data.mask.to(Kb.dtype)
+        eye = _eye_like(Kb.shape[-1], Kb)
+        return Kb * (m[:, :, None] * m[:, None, :]) + eye * (1.0 - m)[:, :, None]
+
+    def refresh_cache(self, params: MVGPParams, data: MVGPData) -> MVGPCache:
+        """Factor the masked Gram (three-rung scale-aware jitter ladder,
+        selected per episode) and precompute alpha = Kb^{-1} Y and
+        Linv = L^{-1}.  A rung is accepted only when its factor is finite
+        and max|Linv| < 1e6 (f32) / 1e12 (f64)."""
+        from ..ops.cholinv import chol_inv_fwd
+        K = self.masked_kb(params, data)
+        eye = _eye_like(K.shape[-1], K)
+        scale = torch.clamp(torch.mean(torch.abs(torch.diagonal(
+            K, dim1=-2, dim2=-1)), -1), min=1.0)[:, None, None]
+        lim = 1e6 if K.dtype == torch.float32 else 1e12
+
+        def sane(Lk, Linvk):
+            return (torch.isfinite(Lk).all(-1).all(-1)
+                    & torch.isfinite(Linvk).all(-1).all(-1)
+                    & (torch.amax(torch.abs(Linvk), (-2, -1)) < lim)
+                    )[:, None, None]
+
+        L, Linv = chol_inv_fwd(K)
+        ok = sane(L, Linv)
+        zero = torch.zeros_like(scale)
+        bump1 = torch.where(ok, zero, 1e-5 * scale)
+        L2, Linv2 = chol_inv_fwd(K + bump1 * eye)
+        L = torch.where(ok, L, L2)
+        Linv = torch.where(ok, Linv, Linv2)
+        ok2 = sane(L, Linv)
+        bump2 = torch.where(ok2, zero, 1e-2 * scale)
+        L3, Linv3 = chol_inv_fwd(K + (bump1 + bump2) * eye)
+        L = torch.where(ok2, L, L3)
+        Linv = torch.where(ok2, Linv, Linv3)
+        Y = self.residual_Y(params, data)
+        alpha = Linv.transpose(-1, -2) @ (Linv @ Y)
+        return MVGPCache(L=L, alpha=alpha, Linv=Linv)
+
+    def _kb_star(self, params: MVGPParams, data: MVGPData, Xtest):
+        """Cross-covariance block (B, b, K, 1+m), masked."""
+        Kxs = self.k_xx(params, Xtest, data.X)                    # (B, b, K)
+        UB = (data.UH @ params.B) * data.mask[..., None]          # (B, K, 1+m)
+        return Kxs[..., None] * UB[:, None]
+
+    def fT_post(self, params, data, cache, x):
+        """Posterior mean of F^T(x): (B, n, 1+m) for states x (B, n)."""
+        kb = self._kb_star(params, data, x[:, None])[:, 0]        # (B, K, 1+m)
+        return (params.mean_M.transpose(-1, -2)
+                + cache.alpha.transpose(-1, -2) @ kb)
+
+    def Bk_single(self, params, data, cache, x, xp):
+        """Posterior row covariance Bk(x, x'): (B, 1+m, 1+m), as matmuls
+        against the cached L^{-1}."""
+        kb = self._kb_star(params, data, x[:, None])[:, 0]
+        prior = self.k_xx_single(params, x, xp)[:, None, None] * params.B
+        vb = cache.Linv @ kb
+        if xp is x:
+            vbp = vb
+        else:
+            kbp = self._kb_star(params, data, xp[:, None])[:, 0]
+            vbp = cache.Linv @ kbp
+        return prior - vb.transpose(-1, -2) @ vbp
+
+
+def make_mvgp_rank1(x_dim: int, u_dim: int, **kw) -> MVGP:
+    """Rank-1 task factors + near-flat Gamma lengthscale prior."""
+    kw.setdefault("gamma_prior", (1e-3, 1e-3))
+    return MVGP(x_dim, u_dim, rank_A=1, rank_B=1, **kw)

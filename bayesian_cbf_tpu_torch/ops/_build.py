@@ -1,0 +1,110 @@
+"""Build and load the hand-written CUDA kernels (`csrc/*.cu`).
+
+Each source compiles with `nvcc` into its own shared library with a
+plain C interface, which is loaded with `ctypes`.  The build happens at
+first use (never at import), goes into `build/kernels/` at the root of the
+checkout, and is keyed by a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is reused.  The `-Xptxas -v`
+report of each build (registers, shared memory, spills) is kept beside
+the library and returned by `ptxas_report`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict = {}
+
+
+def nvcc_path() -> str:
+    """nvcc from PATH, else from the toolkit at $CUDA_HOME (default
+    /usr/local/cuda, the toolkit's standard prefix)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                           "bin", "nvcc")
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _digest(src: Path) -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for dep in sorted(CSRC.glob("*.cuh")) + [src]:
+        h.update(dep.name.encode())
+        h.update(dep.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(name: str) -> Path:
+    """Compile `csrc/<name>.cu` if needed; return the library's path."""
+    src = CSRC / f"{name}.cu"
+    if not src.exists():
+        raise FileNotFoundError(src)
+    out = BUILD_DIR / f"{name}_{_digest(src)}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def ptxas_report(name: str) -> str:
+    """The ptxas resource lines of the current build of `name`."""
+    path = build(name).with_suffix(".ptxas.txt")
+    if not path.exists():
+        return "(library was built by an earlier process; no report kept)"
+    return "\n".join(line for line in path.read_text().splitlines()
+                     if "ptxas" in line)
+
+
+_VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "chol": {
+        "chol_uses_smem": [_INT],
+        "chol_linv_launch": [_VP, _VP, _VP, _VP, _INT, _INT, _VP],
+        "kinv_logdet_launch": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
+    },
+    "ipm": {
+        "ipm_supported": [_INT, _INT, _INT],
+        "ipm_launch": [_VP] * 9 + [_INT] * 5 + [_F32, _VP],
+    },
+}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>.cu`, with typed entry points."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in _SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

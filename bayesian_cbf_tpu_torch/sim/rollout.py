@@ -1,0 +1,129 @@
+"""Batched rollout of the learn-and-control loop.
+
+Each step runs, for every episode of the batch at once: posterior
+moments -> closed-form cones -> SOCP (one IPM launch) -> reservoir record
+-> Euler step of the true dynamics.  The rollout is cut into segments at
+the static refit steps (`fit_segments`); between segments the learner
+refits every episode with a non-empty reservoir.  Nothing in the step
+loop reads a device value on the host.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..control.bayes_controller import (BayesCLFControllerConfig,
+                                        ControlInfo, bayes_clf_control,
+                                        warm_init)
+from ..models.dynamics import (KernelChannels, LearnedDynState,
+                               LearnedShiftInvariantDynamics, where_tree)
+
+
+class RolloutOutputs(NamedTuple):
+    X: torch.Tensor        # (B, T, n) states before each step
+    U: torch.Tensor        # (B, T, m) applied controls
+    Xdot: torch.Tensor     # (B, T, n)
+    info: ControlInfo      # per-step controller diagnostics, (B, T, ...)
+    knl: Optional[KernelChannels] = None
+
+
+class UnicycleSim(NamedTuple):
+    """Static description of a unicycle tracking experiment."""
+    true_dynamics: NamedTuple
+    learned_dynamics: LearnedShiftInvariantDynamics
+    controller: BayesCLFControllerConfig
+    clf: NamedTuple
+    cbfs: tuple
+    planner: NamedTuple
+    dt: float
+    numSteps: int
+
+    def init_state(self, x0s, generator: torch.Generator):
+        """(x0s, learner state, IPM warm state) for a batch x0s (B, n)."""
+        dyn = self.learned_dynamics.init_state(
+            x0s.shape[0], generator, x0s.device, x0s.dtype)
+        return x0s, dyn, self._warm0(x0s, dyn)
+
+    def _warm0(self, x0s, dyn_state: LearnedDynState):
+        """IPM start for step 0: a cold solve at the full iteration count
+        when warm starts are on, else the cold point itself."""
+        w0 = warm_init(self.controller, len(self.cbfs), x0s.shape[0],
+                       x0s.device, x0s.dtype)
+        if not self.controller.warm_start:
+            return w0
+        cfg_full = self.controller._replace(
+            socp_iters_warm=self.controller.socp_iters)
+        mom = self.learned_dynamics.moments(dyn_state, x0s)
+        return bayes_clf_control(cfg_full, self.clf, self.cbfs, self.planner,
+                                 mom, x0s, 0, warm=w0)[2]
+
+
+def fit_segments(numSteps: int, train_every: int, enable: bool):
+    """Static refit schedule [(start, end_exclusive, fit_after), ...]: a
+    fit after every step t that is a positive multiple of train_every."""
+    if not enable or train_every <= 0:
+        return [(0, numSteps, False)]
+    segs = []
+    start = 0
+    for b in range(train_every, numSteps, train_every):
+        segs.append((start, b + 1, True))
+        start = b + 1
+    if start < numSteps:
+        segs.append((start, numSteps, False))
+    return segs
+
+
+def _stack_steps(ys):
+    first = ys[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(ys, 1)
+    vals = [_stack_steps([y[i] for y in ys]) for i in range(len(first))]
+    return type(first)(*vals) if hasattr(first, "_fields") else tuple(vals)
+
+
+def simulate_unicycle_batch(sim: UnicycleSim, x0s: torch.Tensor,
+                            generator: Optional[torch.Generator] = None,
+                            state0: Optional[LearnedDynState] = None,
+                            draws: Optional[torch.Tensor] = None
+                            ) -> RolloutOutputs:
+    """Run B episodes from x0s (B, n).
+
+    generator: the source of the initial weights and the reservoir draws.
+    state0: an initial learner state to start from instead of a fresh one.
+    draws: (T, B) int reservoir draws to use instead of `generator`."""
+    lrn = sim.learned_dynamics
+    if state0 is None:
+        _, states, warms = sim.init_state(x0s, generator)
+    else:
+        states, warms = state0, sim._warm0(x0s, state0)
+    warm_on = sim.controller.warm_start
+
+    X = x0s
+    ys = []
+    fit_event = 0
+    for (s, e, do_fit) in fit_segments(sim.numSteps, lrn.train_every_n_steps,
+                                       lrn.enable_learning):
+        for t in range(s, e):
+            mom = lrn.moments(states, X)
+            out = bayes_clf_control(sim.controller, sim.clf, sim.cbfs,
+                                    sim.planner, mom, X, t,
+                                    warm=warms if warm_on else None)
+            u, info = out[0], out[1]
+            if warm_on:
+                warms = out[2]
+            knl = lrn.kernel_channels(states, mom, u)
+            states = lrn.record(states, X, u,
+                                j=None if draws is None else draws[t],
+                                generator=generator)
+            X_next, xdot = sim.true_dynamics.step(X, u, sim.dt)
+            ys.append((X, u, xdot, info, knl))
+            X = X_next
+        if do_fit:
+            # the first event runs the first-fit program, later ones the
+            # warm refit; episodes with an empty reservoir keep their state
+            fit = lrn.fit_now_first if fit_event == 0 else lrn.fit_now_warm
+            states = where_tree(states.count_res > 0, fit(states), states)
+            fit_event += 1
+    Xs, U, Xdot, info, knl = _stack_steps(ys)
+    return RolloutOutputs(X=Xs, U=U, Xdot=Xdot, info=info, knl=knl)
