@@ -11,11 +11,29 @@ import numpy as np
 import torch
 
 from .models.dynamics import LearnedDynState, LearnedShiftInvariantDynamics
-from .models.mvgp import MVGPCache, MVGPData, MVGPParams
+from .models.mvgp import MVGP, MVGPCache, MVGPData, MVGPParams
 
 
 def _t(a, device, dtype):
     return torch.as_tensor(np.array(a), device=device).to(dtype)
+
+
+def mvgp_from_jax(jgp, fit_inverse: str = "cholk",
+                  fit_chol_assembly: str = "", linv_assembly: str = "kernel",
+                  fused_fit: bool = True) -> MVGP:
+    """The port's MVGP in the configuration of a JAX-package `MVGP` (any
+    object with its fields) and the JAX globals that select its kernel
+    paths: pass `cholinv.FIT_INVERSE`, `cholinv.FIT_CHOL_ASSEMBLY`,
+    `pallas_chol.LINV_ASSEMBLY` and `mvgp.FUSED_FIT`.  `use_pallas`
+    becomes `fused_gram`."""
+    from .ops.cholinv import check_options
+    check_options(fit_inverse, fit_chol_assembly or linv_assembly)
+    return MVGP(x_dim=jgp.x_dim, u_dim=jgp.u_dim, rank_A=jgp.rank_A,
+                rank_B=jgp.rank_B, jitter=jgp.jitter,
+                gamma_prior=jgp.gamma_prior, fit_inverse=fit_inverse,
+                fit_chol_assembly=fit_chol_assembly,
+                linv_assembly=linv_assembly, fused_gram=bool(jgp.use_pallas),
+                fused_fit=bool(fused_fit))
 
 
 def mvgp_params_from_numpy(arrays: Mapping[str, np.ndarray], device,

@@ -81,13 +81,42 @@ class MVGPCache(NamedTuple):
 
 
 class MVGP(NamedTuple):
-    """Static model description (shapes and options only)."""
+    """Static model description (shapes and options only).
+
+    The JAX package selects its kernel paths with module globals; here they
+    are fields, so that configurations can differ within one process:
+
+    fit_inverse: the fit's (K^{-1}, logdet K), `cholinv.FIT_INVERSE`:
+        "cholk" (fused factor + inverse kernel), "chol" (blocked factor,
+        L^{-1}, then Linv^T Linv), "sweep" (recursive Schur/sweep; not
+        finite on trajectory Grams in f32), "sweep_full" (one sweep).
+    fit_chol_assembly: the L^{-1} assembly of "chol",
+        `cholinv.FIT_CHOL_ASSEMBLY`; "" takes `linv_assembly`.
+    linv_assembly: the refresh's L^{-1}, `pallas_chol.LINV_ASSEMBLY`:
+        "kernel" (inside the Cholesky kernel), "row" or "col" (the blocked
+        factor with diagonal-block inverses, assembled with matmuls).
+    fused_gram: build the refresh Gram with the fused kernel,
+        `MVGP.use_pallas`.
+    fused_fit: the MLL through the fused Gram + inverse op
+        (`ops/gramsolve`), `mvgp.FUSED_FIT`; False builds `gram_kb` and
+        calls `solve_and_logdet`.
+    """
     x_dim: int
     u_dim: int
     rank_A: int
     rank_B: int
     jitter: float = 1e-6
     gamma_prior: Optional[tuple] = None   # (concentration, rate) on lengthscale
+    fit_inverse: str = "cholk"
+    fit_chol_assembly: str = ""
+    linv_assembly: str = "kernel"
+    fused_gram: bool = False
+    fused_fit: bool = True
+
+    @property
+    def fit_assembly(self) -> str:
+        """The L^{-1} assembly of the "chol" fit inverse."""
+        return self.fit_chol_assembly or self.linv_assembly
 
     # ---------------------------------------------------------- init
 
@@ -159,20 +188,31 @@ class MVGP(NamedTuple):
 
     def mll(self, params: MVGPParams, data: MVGPData):
         """Exact matrix-normal marginal log likelihood per scalar
-        observation, (B,), through the fused Gram + inverse op."""
-        from ..ops.gramsolve import gram_solve_logdet
+        observation, (B,): through the fused Gram + inverse op, or with
+        `fused_fit=False` through `gram_kb` and `solve_and_logdet`; either
+        way the inverse is the `fit_inverse` kernel."""
         n = self.x_dim
         kcnt = torch.sum(data.mask, -1)
         Y = self.residual_Y(params, data)
         m = data.mask.to(Y.dtype)
-        k = data.X.shape[1]
-        eps = torch.finfo(Y.dtype).eps
-        UB = data.UH @ (params.outputscale[:, None, None] * params.B)
-        diagKb = torch.sum(UB * data.UH, -1)
-        scale = torch.clamp(torch.mean(torch.abs(diagKb), -1), min=1.0)
-        nug = self.jitter + 10.0 * k * eps * scale
-        S, logdet_Kb = gram_solve_logdet(
-            data.X, UB, data.UH, 1.0 / params.lengthscale, nug, m, Y)
+        how = dict(method=self.fit_inverse, assembly=self.fit_assembly)
+        if self.fused_fit:
+            from ..ops.gramsolve import gram_solve_logdet
+            k = data.X.shape[1]
+            eps = torch.finfo(Y.dtype).eps
+            UB = data.UH @ (params.outputscale[:, None, None] * params.B)
+            diagKb = torch.sum(UB * data.UH, -1)
+            scale = torch.clamp(torch.mean(torch.abs(diagKb), -1), min=1.0)
+            nug = self.jitter + 10.0 * k * eps * scale
+            S, logdet_Kb = gram_solve_logdet(
+                data.X, UB, data.UH, 1.0 / params.lengthscale, nug, m, Y,
+                **how)
+        else:
+            from ..ops.cholinv import solve_and_logdet
+            eye = _eye_like(data.X.shape[1], Y)
+            Km = (self.gram_kb(params, data) * (m[:, :, None] * m[:, None, :])
+                  + eye * (1.0 - m)[:, :, None])
+            S, logdet_Kb = solve_and_logdet(Km, Y, **how)
         LA = psd_chol_small_ladder(params.A, init_jitter=self.jitter)
         G = Y.transpose(-1, -2) @ S
         quad = torch.diagonal(cho_solve_small_unrolled(LA, G),
@@ -248,6 +288,14 @@ class MVGP(NamedTuple):
     # ---------------------------------------------------------- posterior
 
     def masked_kb(self, params: MVGPParams, data: MVGPData):
+        """Masked + jittered Gram; with `fused_gram`, built by the fused
+        kernel (ops/gram.py) from Xs = X / lengthscale and UH chol(B)."""
+        if self.fused_gram:
+            from ..ops.gram import fused_gram_kb
+            LB = psd_chol_small_ladder(params.B, init_jitter=1e-10)
+            Xs = data.X / params.lengthscale[:, None, :]
+            return fused_gram_kb(Xs, data.UH @ LB, data.mask.contiguous(),
+                                 params.outputscale, self.jitter)
         Kb = self.gram_kb(params, data)
         m = data.mask.to(Kb.dtype)
         eye = _eye_like(Kb.shape[-1], Kb)
@@ -271,16 +319,17 @@ class MVGP(NamedTuple):
                     & (torch.amax(torch.abs(Linvk), (-2, -1)) < lim)
                     )[:, None, None]
 
-        L, Linv = chol_inv_fwd(K)
+        asm = self.linv_assembly
+        L, Linv = chol_inv_fwd(K, asm)
         ok = sane(L, Linv)
         zero = torch.zeros_like(scale)
         bump1 = torch.where(ok, zero, 1e-5 * scale)
-        L2, Linv2 = chol_inv_fwd(K + bump1 * eye)
+        L2, Linv2 = chol_inv_fwd(K + bump1 * eye, asm)
         L = torch.where(ok, L, L2)
         Linv = torch.where(ok, Linv, Linv2)
         ok2 = sane(L, Linv)
         bump2 = torch.where(ok2, zero, 1e-2 * scale)
-        L3, Linv3 = chol_inv_fwd(K + (bump1 + bump2) * eye)
+        L3, Linv3 = chol_inv_fwd(K + (bump1 + bump2) * eye, asm)
         L = torch.where(ok2, L, L3)
         Linv = torch.where(ok2, Linv, Linv3)
         Y = self.residual_Y(params, data)

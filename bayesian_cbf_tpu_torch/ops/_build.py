@@ -48,24 +48,43 @@ def _digest(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
-def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` if needed; return the library's path."""
+def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(src)
-    out = BUILD_DIR / f"{name}_{_digest(src)}.so"
-    if out.exists():
-        return out
+    return BUILD_DIR / f"{name}_{_digest(src)}.so"
+
+
+def _start(name: str, out: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), tmp
+
+
+def _finish(name: str, out: Path, proc, tmp: Path) -> None:
+    log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}\n"
-                           f"{proc.stderr}")
-    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    out.with_suffix(".ptxas.txt").write_text(log)
     os.replace(tmp, out)
-    return out
+
+
+def build_all(names) -> None:
+    """Compile every `csrc/<name>.cu` that needs it, one nvcc process per
+    source, all running at once."""
+    todo = [(name, _target(name)) for name in names]
+    running = [(name, out, *_start(name, out)) for name, out in todo
+               if not out.exists()]
+    for name, out, proc, tmp in running:
+        _finish(name, out, proc, tmp)
+
+
+def build(name: str) -> Path:
+    """Compile `csrc/<name>.cu` if needed; return the library's path."""
+    build_all([name])
+    return _target(name)
 
 
 def ptxas_report(name: str) -> str:
@@ -88,7 +107,19 @@ _SIGNATURES = {
         "ipm_supported": [_INT, _INT, _INT],
         "ipm_launch": [_VP] * 9 + [_INT] * 5 + [_F32, _VP],
     },
+    "sweep": {
+        "sweep_uses_smem": [_INT, _INT],
+        "sweep_launch": [_VP] * 4 + [_INT, _VP] + [_INT] * 3 + [_VP],
+    },
+    "chol_blocked": {
+        "chol_dinv_uses_smem": [_INT, _INT],
+        "chol_dinv_launch": [_VP] * 4 + [_INT] * 4 + [_VP],
+    },
+    "gram": {
+        "gram_launch": [_VP] * 4 + [_F32, _VP] + [_INT] * 4 + [_VP],
+    },
 }
+KERNEL_SOURCES = tuple(_SIGNATURES)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -32,9 +32,9 @@ def km_expr(X, UB, UH, inv_ell, nug, mask):
 
 class _GramSolveLogdet(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, X, UB, UH, inv_ell, nug, mask, Y):
+    def forward(ctx, X, UB, UH, inv_ell, nug, mask, Y, method, assembly):
         Km = km_expr(X, UB, UH, inv_ell, nug, mask)
-        Kinv, logdet = batched_kinv_logdet_fit(Km)
+        Kinv, logdet = batched_kinv_logdet_fit(Km, method, assembly)
         S = Kinv @ Y
         ctx.save_for_backward(S, Kinv, X, UB, UH, inv_ell, nug, mask)
         return S, logdet
@@ -59,10 +59,13 @@ class _GramSolveLogdet(torch.autograd.Function):
                 wrt = [a for a, n in zip(leaves, need) if n]
                 got = iter(torch.autograd.grad(Km, wrt, dKm))
             grads = [next(got) if n else None for n in need]
-        return (*grads, dY if ctx.needs_input_grad[6] else None)
+        return (*grads, dY if ctx.needs_input_grad[6] else None, None, None)
 
 
-def gram_solve_logdet(X, UB, UH, inv_ell, nug, mask, Y):
+def gram_solve_logdet(X, UB, UH, inv_ell, nug, mask, Y, method="cholk",
+                      assembly="kernel"):
     """(Km^{-1} Y, logdet Km) of the masked fit-Gram, batched, with a
-    matmul-only backward through a recomputed `km_expr`."""
-    return _GramSolveLogdet.apply(X, UB, UH, inv_ell, nug, mask, Y)
+    matmul-only backward through a recomputed `km_expr`; the inverse by
+    the fit inverse `method` (`ops/cholinv.batched_kinv_logdet_fit`)."""
+    return _GramSolveLogdet.apply(X, UB, UH, inv_ell, nug, mask, Y, method,
+                                  assembly)
