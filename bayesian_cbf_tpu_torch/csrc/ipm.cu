@@ -21,6 +21,9 @@
 // length search per iteration), and register pressure — the iterate, its
 // best copy and the scaling state are several hundred floats at
 // (4, 4, 4), so the compiler spills some of them to local memory (L1).
+// A padded 1-dimensional cone (the nonnegative ray) carries zero rows of G
+// and h beyond its head; its tail coordinates start at zero and stay there
+// through the same arithmetic, exactly as in the plain version.
 // The problem data G and h are read from global memory through the
 // read-only path on each use instead of being held in registers.  The
 // launch has ceil(B / 128) blocks; at B = 256 only two SMs are busy,
@@ -461,19 +464,25 @@ int launch(const float* c, const float* G, const float* h, const float* sx,
 extern "C" {
 
 // Batch-fastest layout: c (nx, B), G (C, d, nx, B), h / S / Z (C, d, B).
-// Returns cudaErrorInvalidValue for a shape with no instantiation.
+// Instantiated shapes (nx, C, d): (4, 4, 4), the unicycle controller's
+// [u (2), relax, t] with four cones of dimension 4; (4, 3, 3), the
+// pendulum controller's [u, delta, y, s] with cones of dimensions (3, 3, 1)
+// padded to 3.  Returns cudaErrorInvalidValue for any other shape.
 int ipm_launch(const float* c, const float* G, const float* h, const float* sx,
                const float* sS, const float* sZ, float* x, float* S, float* Z,
                int B, int nx, int C, int d, int iters, float tol, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (nx == 4 && C == 4 && d == 4)
         return launch<4, 4, 4>(c, G, h, sx, sS, sZ, x, S, Z, B, iters, tol, s);
+    if (nx == 4 && C == 3 && d == 3)
+        return launch<4, 3, 3>(c, G, h, sx, sS, sZ, x, S, Z, B, iters, tol, s);
     return (int)cudaErrorInvalidValue;
 }
 
 // 1 when (nx, C, d) has a compiled instantiation.
 int ipm_supported(int nx, int C, int d) {
-    return (nx == 4 && C == 4 && d == 4) ? 1 : 0;
+    return ((nx == 4 && C == 4 && d == 4) || (nx == 4 && C == 3 && d == 3))
+               ? 1 : 0;
 }
 
 }  // extern "C"

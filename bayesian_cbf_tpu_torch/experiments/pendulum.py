@@ -1,0 +1,159 @@
+"""The pendulum online-learning experiment, batched over episodes: start
+near theta = 7 pi / 12, an epsilon-greedy LQR reference on the learned
+model, a learned relative-degree-2 CBC SOCP keeping theta out of the
+wedge around pi / 4, and the dynamics (drift and actuation) learned from
+scratch by a full-rank MVGP.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..control.learned_socp_controller import (LearnedSOCPControllerConfig,
+                                               learned_socp_control)
+from ..control.pendulum_safety import RadialCBFRelDegree2
+from ..control.secondary import EpsilonGreedyController, LQRController
+from ..models.dynamics import (LearnedDynState, LearnedShiftInvariantDynamics,
+                               PendulumDynamics, ZeroDynamics, where_tree)
+from ..models.mvgp import make_mvgp
+from ..sim.rollout import _stack_steps, fit_segments
+
+THETA0 = 7 * math.pi / 12
+
+
+class PendulumOnlineSim(NamedTuple):
+    true_dynamics: PendulumDynamics
+    learned: LearnedShiftInvariantDynamics
+    controller: LearnedSOCPControllerConfig
+    cbf: RadialCBFRelDegree2
+    lqr: LQRController
+    egreedy: EpsilonGreedyController
+    dt: float
+    numSteps: int
+    device: torch.device = torch.device("cuda")
+    dtype: torch.dtype = torch.float32
+
+
+def make_pendulum_online_sim(
+        numSteps=250, dt=2e-3, max_train=40, training_iter=25,
+        train_every_n_steps=10, max_unsafe_prob=0.01,
+        k_alpha=(1.0, 3.0), ctrl_range=(-15.0, 15.0),
+        egreedy_scheme=(1.0, 0.01), socp_iters=25,
+        training_iter_warm=0, continuous_updates=False,
+        first_fit_coarse_stride=0, first_fit_refine_iter=15,
+        device="cuda", dtype=torch.float32) -> PendulumOnlineSim:
+    """Build the experiment.  continuous_updates=True appends every
+    accepted sample to the posterior the step it is recorded (pair it
+    with a sparser train_every_n_steps).  The episodes run on `device` in
+    `dtype`: by default the card, in its working type f32 (tests pass
+    device="cpu", dtype=torch.float64)."""
+    pend = PendulumDynamics()
+    learned = LearnedShiftInvariantDynamics(
+        gp=make_mvgp(2, 1, gamma_prior=(math.pi / 100, math.pi / 100)),
+        mean_dynamics=ZeroDynamics(state_size=2, ctrl_size=1),
+        max_train=max_train, training_iter=training_iter,
+        shift_invariant=False, train_every_n_steps=train_every_n_steps,
+        enable_learning=True, dt=dt,
+        training_iter_warm=training_iter_warm,
+        continuous_updates=continuous_updates,
+        first_fit_coarse_stride=first_fit_coarse_stride,
+        first_fit_refine_iter=first_fit_refine_iter)
+    controller = LearnedSOCPControllerConfig(
+        u_dim=1, x_dim=2, ctrl_reg=1.0, clf_relax_weight=100.0,
+        max_unsafe_prob=max_unsafe_prob, k_alpha=k_alpha,
+        socp_iters=socp_iters)
+    lqr = LQRController(Q=((1.0, 0.0), (0.0, 1.0)), R=((1.0,),),
+                        x_goal=(0.0, 0.0), horizon=20, dt=dt,
+                        ctrl_range=ctrl_range)
+    egreedy = EpsilonGreedyController(numSteps=numSteps,
+                                      egreedy_scheme=egreedy_scheme,
+                                      ctrl_range=ctrl_range)
+    cbf = RadialCBFRelDegree2(model=pend, k_alpha=k_alpha,
+                              max_unsafe_prob=max_unsafe_prob)
+    return PendulumOnlineSim(true_dynamics=pend, learned=learned,
+                             controller=controller, cbf=cbf, lqr=lqr,
+                             egreedy=egreedy, dt=dt, numSteps=numSteps,
+                             device=torch.device(device), dtype=dtype)
+
+
+class PendulumOutputs(NamedTuple):
+    X: torch.Tensor          # (B, T, 2) states before each step
+    U: torch.Tensor          # (B, T, 1) applied controls
+    Xdot: torch.Tensor       # (B, T, 2)
+    info: NamedTuple         # LearnedSOCPInfo, each field (B, T, ...)
+
+
+def run_pendulum_online_batch(sim: PendulumOnlineSim, x0s,
+                              generator: Optional[torch.Generator] = None,
+                              state0: Optional[LearnedDynState] = None,
+                              draws: Optional[torch.Tensor] = None,
+                              noise: Optional[torch.Tensor] = None
+                              ) -> PendulumOutputs:
+    """Run B episodes from x0s (B, 2) (moved to sim.device in sim.dtype).
+
+    Each step, for all episodes at once: moment derivatives of the learned
+    model -> LQR reference on its linearization -> epsilon-greedy
+    perturbation -> CBC2 SOCP (one IPM launch; an infeasible solve falls
+    back to the clean LQR reference) -> reservoir record (with
+    continuous_updates, a rank-1 cache append) -> Euler step of the true
+    pendulum.  The rollout is cut at the refit steps of `fit_segments`
+    (after every step t > 0 with t % train_every_n_steps == 0); the first
+    event runs `fit_now_first`, later ones `fit_now_warm`, each for the
+    episodes with a non-empty reservoir.
+
+    generator: the source of the initial weights, the reservoir draws and
+    the exploration uniforms.  state0: an initial learner state instead
+    of a fresh one.  draws (T, B): reservoir draws; noise (T, B, 1): the
+    exploration uniforms on [0, 1); each replaces the generator's."""
+    lrn = sim.learned
+    X = torch.as_tensor(x0s, dtype=sim.dtype, device=sim.device)
+    B = X.shape[0]
+    states = state0 if state0 is not None else lrn.init_state(
+        B, generator, X.device, X.dtype)
+    ys = []
+    fit_event = 0
+    for (s, e, do_fit) in fit_segments(sim.numSteps, lrn.train_every_n_steps,
+                                       lrn.enable_learning):
+        for t in range(s, e):
+            mder = lrn.moment_derivatives(states, X)
+            M, dM = mder[0], mder[1]
+            u_lqr = sim.lqr.control_with_model(dM[:, :, 0, :], M[:, :, 1:],
+                                               X)
+            uni = noise[t] if noise is not None else torch.rand(
+                u_lqr.shape, generator=generator, dtype=X.dtype,
+                device=X.device)
+            u_ref = sim.egreedy.perturb(u_lqr, t, uni)
+            u, info = learned_socp_control(sim.controller, (sim.cbf,), mder,
+                                           u_ref, X, u_fallback=u_lqr)
+            states = lrn.record(states, X, u,
+                                j=None if draws is None else draws[t],
+                                generator=generator)
+            X_next, xdot = sim.true_dynamics.step(X, u, sim.dt)
+            ys.append((X, u, xdot, info))
+            X = X_next
+        if do_fit:
+            fit = lrn.fit_now_first if fit_event == 0 else lrn.fit_now_warm
+            states = where_tree(states.count_res > 0, fit(states), states)
+            fit_event += 1
+    return PendulumOutputs(*_stack_steps(ys))
+
+
+def pendulum_damage_fraction(theta):
+    """Fraction of steps (over the last axis) with 0 < theta < pi / 4,
+    theta wrapped to [-pi, pi): the damage indicator of the reference
+    experiment."""
+    th = torch.remainder(theta + math.pi, 2 * math.pi) - math.pi
+    return ((th > 0) & (th < math.pi / 4)).to(theta.dtype).mean(-1)
+
+
+def pendulum_wedge_fraction(theta, theta_c=math.pi / 4,
+                            delta_col=math.pi / 8):
+    """Fraction of steps (over the last axis) inside the radial CBF's
+    unsafe wedge |theta - theta_c| < delta_col (h < 0): a stricter
+    diagnostic than the damage indicator, since the chance constraint
+    admits a per-step violation probability."""
+    d = torch.abs(theta - theta_c)
+    d = torch.minimum(d, 2 * math.pi - d)
+    return (d < delta_col).to(theta.dtype).mean(-1)

@@ -41,9 +41,10 @@ def make_ackermann_tracking_sim(
         training_iter_warm: int = 0,
         first_fit_coarse_stride: int = 0,
         first_fit_refine_iter: int = 15,
-        device="cpu", dtype=torch.float64) -> UnicycleSim:
+        device="cuda", dtype=torch.float32) -> UnicycleSim:
     """Build the tracking experiment; obstacle centers and plan
-    checkpoints live on `device` in `dtype`."""
+    checkpoints live on `device` in `dtype` (by default the card, in its
+    working type f32; tests pass device="cpu", dtype=torch.float64)."""
     x0 = torch.tensor(x0, dtype=dtype, device=device)
     x_goal = torch.tensor(x_goal, dtype=dtype, device=device)
     cbfs = tuple(obstacles_at_mid_from_start_and_goal(

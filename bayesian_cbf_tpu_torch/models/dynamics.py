@@ -1,7 +1,7 @@
-"""Control-affine dynamics: the Ackermann ground truth / prior mean, and
-the online-learned residual MVGP with shift invariance, batched over
-episodes.  The state of the learner is a NamedTuple of tensors with a
-leading episode axis.
+"""Control-affine dynamics: the Ackermann and pendulum ground truths,
+the zero prior mean, and the online-learned residual MVGP with shift
+invariance, batched over episodes.  The state of the learner is a
+NamedTuple of tensors with a leading episode axis.
 """
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.func import normalize_radians
 from .mvgp import MVGP, MVGPCache, MVGPData, MVGPParams
 
 
@@ -53,6 +54,17 @@ def where_tree(keep: torch.Tensor, a_tree, b_tree):
     return _map(sel, a_tree, b_tree)
 
 
+def _write_row(data: MVGPData, hit, x, uh, xdot) -> MVGPData:
+    """data with row k of episode b replaced by (x, uh, xdot, 1) where
+    hit (B, K) holds."""
+    h = hit[..., None]
+    return MVGPData(X=torch.where(h, x[:, None], data.X),
+                    UH=torch.where(h, uh[:, None], data.UH),
+                    Xdot=torch.where(h, xdot[:, None], data.Xdot),
+                    mask=torch.where(hit, torch.ones_like(data.mask),
+                                     data.mask))
+
+
 class AckermannDrive(NamedTuple):
     """Ackermann car with wheelbase L: xdot = [v cos th, v sin th, w / L],
     u = [v, w]; f = 0.  `kernel_diag_A` is the prior output covariance."""
@@ -78,6 +90,54 @@ class AckermannDrive(NamedTuple):
     def step(self, x, u, dt):
         xdot = self.f_func(x) + (self.g_func(x) @ u[..., None])[..., 0]
         return x + xdot * dt, xdot
+
+
+class ZeroDynamics(NamedTuple):
+    """Zero drift and actuation: the prior mean of a model learned from
+    scratch."""
+    state_size: int = 3
+    ctrl_size: int = 2
+
+    def f_func(self, x):
+        return torch.zeros_like(x)
+
+    def g_func(self, x):
+        return x.new_zeros((x.shape[0], self.state_size, self.ctrl_size))
+
+    def F_func(self, x):
+        return x.new_zeros((x.shape[0], self.state_size, 1 + self.ctrl_size))
+
+    def F_jac(self, x):
+        """d F[i, j] / d x_a: (B, n, 1+m, n)."""
+        return x.new_zeros((x.shape[0], self.state_size, 1 + self.ctrl_size,
+                            self.state_size))
+
+
+class PendulumDynamics(NamedTuple):
+    """Inverted pendulum, x = (theta, omega): f = [omega, -(g/l) sin theta],
+    g = [0, 1/(m l)]; the step wraps theta to [-pi, pi)."""
+    mass: float = 1.0
+    gravity: float = 10.0
+    length: float = 1.0
+    state_size: int = 2
+    ctrl_size: int = 1
+
+    def f_func(self, x):
+        th, w = x[:, 0], x[:, 1]
+        return torch.stack([w, -(self.gravity / self.length) * torch.sin(th)],
+                           -1)
+
+    def g_func(self, x):
+        g = x.new_zeros((x.shape[0], 2, 1))
+        g[:, 1, 0] = 1.0 / (self.mass * self.length)
+        return g
+
+    def step(self, x, u, dt):
+        xdot = self.f_func(x) + (self.g_func(x) @ u[..., None])[..., 0]
+        x_next = x + xdot * dt
+        x_next = torch.stack([normalize_radians(x_next[:, 0]), x_next[:, 1]],
+                             -1)
+        return x_next, xdot
 
 
 class LearnedDynState(NamedTuple):
@@ -120,6 +180,10 @@ class LearnedShiftInvariantDynamics(NamedTuple):
     training_iter_warm: int = 0
     first_fit_coarse_stride: int = 0
     first_fit_refine_iter: int = 15
+    # rank-1 posterior appends: each accepted sample enters the cache the
+    # step it is recorded, while the reservoir fills; the scheduled refits
+    # still own the hyperparameters and, once it is full, the cache
+    continuous_updates: bool = False
 
     # ------------------------------------------------------------ state
 
@@ -161,6 +225,35 @@ class LearnedShiftInvariantDynamics(NamedTuple):
                                             state.cache, xs)
         Bk = self.gp.Bk_single(state.params, state.data, state.cache, xs, xs)
         return FT, Bk, state.params.A
+
+    def moment_derivatives(self, state: LearnedDynState, x):
+        """Posterior moments with their x-derivatives at states x (B, n),
+        everything a relative-degree-2 chance constraint needs, from one
+        posterior evaluation:
+
+            M  (B, n, 1+m)          posterior mean of F^T (with the mean
+                                    dynamics)
+            dM (B, n, 1+m, n)       dM[..., i, j, a] = d M[i, j] / d x_a
+            Bk (B, 1+m, 1+m)        posterior row covariance at (x, x)
+            D1 (B, n, 1+m, 1+m)     d Bk(x, x') / d x_a          at x' = x
+            D2 (B, n, n, 1+m, 1+m)  d^2 Bk / d x_a d x'_b        at x' = x
+            A  (B, n, n)            task output covariance
+
+        The mean dynamics supply F_func and its Jacobian F_jac.  With shift
+        invariance the zeroed coordinates carry no derivative."""
+        if not self.enable_learning:
+            raise NotImplementedError(
+                "moment_derivatives of the mean dynamics alone is not ported")
+        md = self.mean_dynamics
+        fT, dfT, Bk, D1, D2 = self.gp.posterior_derivatives(
+            state.params, state.data, state.cache, self._shift_inv(x))
+        if self.shift_invariant:
+            keep = self._shift_inv(torch.ones_like(x[:1]))[0]      # (n,)
+            dfT = dfT * keep
+            D1 = D1 * keep[:, None, None]
+            D2 = D2 * (keep[:, None] * keep)[..., None, None]
+        return (md.F_func(x) + fT, md.F_jac(x) + dfT, Bk, D1, D2,
+                state.params.A)
 
     def kernel_channels(self, state: LearnedDynState, moments, u
                         ) -> KernelChannels:
@@ -215,17 +308,22 @@ class LearnedShiftInvariantDynamics(NamedTuple):
                        -1)
         hit = (torch.arange(cap, device=x.device)[None, :] == slot[:, None]
                ) & accept[:, None]                                  # (B, K)
-        buf = state.buf
-        buf = MVGPData(
-            X=torch.where(hit[..., None], xprev_si[:, None], buf.X),
-            UH=torch.where(hit[..., None], uh[:, None], buf.UH),
-            Xdot=torch.where(hit[..., None], resid[:, None], buf.Xdot),
-            mask=torch.where(hit, torch.ones_like(buf.mask), buf.mask))
-        return state._replace(
+        buf = _write_row(state.buf, hit, xprev_si, uh, resid)
+        new = state._replace(
             buf=buf, prev_x=x, prev_u=u,
             have_prev=torch.ones_like(state.have_prev),
             count_pairs=state.count_pairs + 1,
             count_res=cr + accept.to(cr.dtype))
+        if not self.continuous_updates:
+            return new
+        # row-gated rank-1 append while the reservoir fills; once it is
+        # full the scheduled refits own the cache.  The fitted snapshot
+        # `data` takes the row where the cache does.
+        wr = accept & (cr < cap)
+        cache = self.gp.cache_append_row(new.params, buf, state.cache, slot,
+                                         wr)
+        data = _write_row(state.data, hit & wr[:, None], xprev_si, uh, resid)
+        return new._replace(data=data, cache=cache)
 
     def _refit(self, state: LearnedDynState, params: MVGPParams
                ) -> LearnedDynState:

@@ -361,6 +361,101 @@ class MVGP(NamedTuple):
             vbp = cache.Linv @ kbp
         return prior - vb.transpose(-1, -2) @ vbp
 
+    def posterior_derivatives(self, params, data, cache, x):
+        """The posterior at states x (B, n) with its x-derivatives, in
+        closed form from the RBF cross-covariance (the JAX package takes
+        nested `jacfwd` through `fT_post` and `Bk_single`):
+
+            fT (B, n, 1+m)            posterior mean of F^T(x)
+            dfT (B, n, 1+m, n)        dfT[..., i, j, a] = d fT[i, j] / d x_a
+            Bk (B, 1+m, 1+m)          Bk(x, x)
+            D1 (B, n, 1+m, 1+m)       d Bk(x, x') / d x_a        at x' = x
+            D2 (B, n, n, 1+m, 1+m)    d^2 Bk / d x_a d x'_b      at x' = x
+
+        With k_i = k(x, X_i), d k_i / d x_a = -k_i (x_a - X_ia) / l_a^2,
+        and Bk(x, x') = k(x, x') B - vb(x)^T vb(x'), vb = Linv kb, whose
+        prior term has zero first derivative and second derivative
+        outputscale delta_ab / l_a^2 at x' = x."""
+        ell2 = params.lengthscale ** 2                             # (B, n)
+        kx = self.k_xx(params, x[:, None], data.X)[:, 0]          # (B, K)
+        UB = (data.UH @ params.B) * data.mask[..., None]          # (B, K, 1+m)
+        dk = -kx[..., None] * (x[:, None, :] - data.X) / ell2[:, None]
+        fT = (params.mean_M.transpose(-1, -2)
+              + cache.alpha.transpose(-1, -2) @ (kx[..., None] * UB))
+        dfT = torch.einsum('bki,bka,bkj->bija', cache.alpha, dk, UB)
+        vb = cache.Linv @ (kx[..., None] * UB)                    # (B, K, 1+m)
+        Bsz, K, mh = UB.shape
+        n = x.shape[-1]
+        dvb = (cache.Linv @ (dk[..., None] * UB[:, :, None]).reshape(
+            Bsz, K, n * mh)).reshape(Bsz, K, n, mh)
+        Bk = params.outputscale[:, None, None] * params.B \
+            - vb.transpose(-1, -2) @ vb
+        D1 = -torch.einsum('bkaj,bkl->bajl', dvb, vb)
+        prior2 = torch.diag_embed(params.outputscale[:, None] / ell2)
+        D2 = (prior2[..., None, None] * params.B[:, None, None]
+              - torch.einsum('bkaj,bkcl->bacjl', dvb, dvb))
+        return fT, dfT, Bk, D1, D2
+
+    def cache_append_row(self, params: MVGPParams, data: MVGPData,
+                         cache: MVGPCache, slot, write) -> MVGPCache:
+        """O(K^2) prefix append of row `slot` (B,) to the posterior cache,
+        applied where `write` (B,) holds: with the new Gram row c (the
+        active rows before `slot`) and diagonal d (with `gram_kb`'s
+        dtype-aware nugget), l21 = Linv c, l22 = sqrt(max(d - |l21|^2,
+        jitter)); L's row becomes [l21, l22], Linv's row
+        [-(l21^T Linv) / l22, 1 / l22], and alpha follows the rank-1 (RLS)
+        block-inverse identity.  A row whose results are not finite, whose
+        inverse row reaches 1e6 (f32; 1e12 f64) or whose alpha reaches 1e8
+        (f32; 1e14 f64) leaves the cache as it was.  `data` must already
+        hold the new row at `slot`.  Rows are written with a one-hot
+        select, so nothing is read back to the host."""
+        K = data.X.shape[1]
+        dtype = data.X.dtype
+        hot = torch.arange(K, device=slot.device)[None] == slot[:, None]
+        sel = hot.to(dtype)
+        x_s = torch.einsum('bk,bkn->bn', sel, data.X)
+        uh_s = torch.einsum('bk,bkj->bj', sel, data.UH)
+        UHB = data.UH @ params.B                                  # (B, K, 1+m)
+        kx = self.k_xx(params, x_s[:, None], data.X)[:, 0]        # (B, K)
+        uBu_diag = torch.sum(UHB * data.UH, -1)
+        eps = torch.finfo(dtype).eps
+        scale = torch.clamp(torch.mean(torch.abs(
+            params.outputscale[:, None] * uBu_diag), -1), min=1.0)
+        nug = self.jitter + 10.0 * K * eps * scale
+        before = torch.arange(K, device=slot.device)[None] < slot[:, None]
+        c = kx * (UHB @ uh_s[..., None])[..., 0] * data.mask * before
+        d = params.outputscale * torch.einsum(
+            'bi,bij,bj->b', uh_s, params.B, uh_s) + nug
+        l21 = (cache.Linv @ c[..., None])[..., 0]
+        s2 = torch.clamp(d - torch.sum(l21 * l21, -1), min=self.jitter)
+        l22 = torch.sqrt(s2)
+        w = (l21[:, None] @ cache.Linv)[:, 0]                    # (B, K)
+        inv_row = -w / l22[:, None]
+        lim = 1e6 if dtype == torch.float32 else 1e12
+        alim = 1e8 if dtype == torch.float32 else 1e14
+        Y = self.residual_Y(params, data)
+        y_s = torch.einsum('bk,bkn->bn', sel, Y)
+        gain = ((c[:, None] @ cache.alpha)[:, 0] - y_s) / s2[:, None]
+        alpha_cand = torch.where(hot[..., None], -gain[:, None],
+                                 cache.alpha + w[..., None] * gain[:, None])
+        ok = (torch.isfinite(l21).all(-1) & torch.isfinite(l22)
+              & (torch.amax(torch.abs(inv_row), -1) < lim)
+              & torch.isfinite(alpha_cand).all(-1).all(-1)
+              & (torch.amax(torch.abs(alpha_cand), (-2, -1)) < alim))
+        wr = ok & write
+        row = (hot & wr[:, None])[..., None]                      # (B, K, 1)
+        L = torch.where(row, torch.where(hot, l22[:, None], l21)[:, None],
+                        cache.L)
+        Linv = torch.where(row, torch.where(hot, 1.0 / l22[:, None],
+                                            inv_row)[:, None], cache.Linv)
+        alpha = torch.where(wr[:, None, None], alpha_cand, cache.alpha)
+        return MVGPCache(L=L, alpha=alpha, Linv=Linv)
+
+
+def make_mvgp(x_dim: int, u_dim: int, **kw) -> MVGP:
+    """Full-rank task factors (rank_A = n, rank_B = 1 + m)."""
+    return MVGP(x_dim, u_dim, rank_A=x_dim, rank_B=1 + u_dim, **kw)
+
 
 def make_mvgp_rank1(x_dim: int, u_dim: int, **kw) -> MVGP:
     """Rank-1 task factors + near-flat Gamma lengthscale prior."""

@@ -115,6 +115,11 @@ _SIGNATURES = {
         "chol_dinv_uses_smem": [_INT, _INT],
         "chol_dinv_launch": [_VP] * 4 + [_INT] * 4 + [_VP],
     },
+    "cholsolve": {
+        "cholsolve_plan": [_INT] * 4,
+        "cholsolve_logdet_launch": [_VP] * 8 + [_INT] * 5 + [_VP],
+        "solve_with_factor_launch": [_VP] * 5 + [_INT] * 5 + [_VP],
+    },
     "gram": {
         "gram_launch": [_VP] * 4 + [_F32, _VP] + [_INT] * 4 + [_VP],
     },

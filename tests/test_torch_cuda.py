@@ -251,3 +251,89 @@ def test_new_kernels_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         gm.fused_gram_kb(wide, K, K[:, 0].contiguous(),
                          K[:, 0, 0].contiguous(), 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,r,nb", [(3, 50, 11, 16), (4, 200, 16, 32),
+                                      (2, 200, 64, 32), (2, 1024, 16, 32),
+                                      (2, 1024, 64, 32), (2, 1, 1, 32)])
+def test_cholsolve_kernels_match_plain(cuda, B, n, r, nb):
+    """Every shared-memory plan: the factor's matrix and the RHS in shared
+    memory, the matrix in global scratch, both in global scratch."""
+    rng = np.random.default_rng(n + r)
+    R = torch.tensor(rng.normal(size=(B, n, r)), dtype=torch.float32,
+                     device=cuda)
+    S = torch.tensor(_spd(B, n, n), dtype=torch.float32, device=cuda)
+    got = ck.cholsolve_logdet(S, R, nb)
+    want = ck.cholsolve_logdet_plain(S, R, nb)
+    again = ck.solve_with_factor(got[1], got[2], R, nb)
+    plain_again = ck.solve_with_factor_plain(got[1], got[2], R, nb)
+    dinv = ck.chol_dinv(S, nb)
+    torch.cuda.synchronize()
+    # well-conditioned SPD in f32: relative agreement 1e-4
+    for g, w in zip(got, want):
+        assert _rel(g, w) < 1e-4
+    assert _rel(again, plain_again) < 1e-4
+    assert float((again - got[0]).abs().max()) == 0.0
+    # the factor is kernel 8's, from the same device code
+    assert float((dinv[0] - got[1]).abs().max()) == 0.0
+    assert float((dinv[1] - got[2]).abs().max()) == 0.0
+    exact = torch.linalg.solve(S.double(), R.double())
+    assert _rel(got[0].double(), exact) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cholsolve_on_trajectory_grams(cuda):
+    """The fit buffers' conditioning (kappa ~1e6): no farther from the f64
+    solve than the plain f32 version, with a little margin."""
+    K = torch.tensor(_trajectory_grams(8, 200, 5), dtype=torch.float32,
+                     device=cuda)
+    R = torch.tensor(np.random.default_rng(5).normal(size=(8, 200, 16)),
+                     dtype=torch.float32, device=cuda)
+    exact = torch.linalg.solve(K.double(), R.double())
+    got = ck.cholsolve_logdet(K, R)
+    want = ck.cholsolve_logdet_plain(K, R)
+    torch.cuda.synchronize()
+    assert _rel(got[0].double(), exact) <= 3.0 * _rel(want[0].double(),
+                                                      exact) + 1e-3
+    ld64 = torch.linalg.slogdet(K.double())[1]
+    assert float((got[3].double() - ld64).abs().max()) < 0.5
+
+
+@pytest.mark.cuda
+def test_cholsolve_counts_launches_and_rejects_bad_input(cuda):
+    K = torch.eye(8, device=cuda).expand(2, 8, 8).contiguous()
+    R = torch.ones((2, 8, 3), device=cuda)
+    before = (ck.cholsolve_logdet.launches, ck.solve_with_factor.launches)
+    _, L, Dinv, _ = ck.cholsolve_logdet(K, R)
+    ck.solve_with_factor(L, Dinv, R)
+    assert (ck.cholsolve_logdet.launches,
+            ck.solve_with_factor.launches) == (before[0] + 1, before[1] + 1)
+    for bad in (R.double(), torch.ones((2, 8, 65), device=cuda),
+                R.transpose(1, 2).contiguous().transpose(1, 2),
+                torch.ones((2, 7, 3), device=cuda)):
+        with pytest.raises(ValueError):
+            ck.cholsolve_logdet(K, bad)
+    with pytest.raises(ValueError):
+        ck.cholsolve_logdet(K, R, nb=65)
+    with pytest.raises(ValueError):
+        ck.solve_with_factor(L, Dinv[:, :, :16].contiguous(), R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 256, 300])
+def test_ipm_kernel_pendulum_shape_matches_plain(cuda, B):
+    """(nx, C, d) = (4, 3, 3): two 3-dimensional cones and a ray padded
+    to 3, as the pendulum controller builds them; the ray's padded tail
+    stays zero."""
+    args = [torch.tensor(a, dtype=torch.float32, device=cuda)
+            for a in _mixed_cones(B, B + 1, dims=(3, 3, 1))]
+    got = ik.ipm(*args, 25, 1e-10)
+    want = ik.ipm_plain(*args, 25, 1e-10)
+    torch.cuda.synchronize()
+    sg = ik.score_padded(*args[:3], *got)
+    sw = ik.score_padded(*args[:3], *want)
+    assert float(sg.median()) <= 2.0 * float(sw.median()) + 1e-6
+    assert bool(torch.isfinite(got[0]).all())
+    assert float(got[1][:, 2, 1:].abs().max()) == 0.0
+    assert float(got[2][:, 2, 1:].abs().max()) == 0.0

@@ -62,7 +62,7 @@ def test_golden_episode_reproduced():
     jsim = ju.make_ackermann_tracking_sim(**kw)
     params, draws = _jax_start(jsim.learned_dynamics, jax.random.PRNGKey(7),
                                40)
-    sim = tu.make_ackermann_tracking_sim(**kw)
+    sim = tu.make_ackermann_tracking_sim(**kw, device="cpu", dtype=F64)
     state0 = interop.learned_state_from_numpy(
         sim.learned_dynamics, {k: v[None] for k, v in params.items()},
         "cpu", F64)
@@ -94,7 +94,7 @@ def test_batched_episodes_match_jax_batch_runner():
     want = jax.jit(lambda a, k: _simulate_unicycle_batch(jsim, a, k))(
         jnp.asarray(x0s), keys)
     starts = [_jax_start(jsim.learned_dynamics, k, 40) for k in keys]
-    sim = tu.make_ackermann_tracking_sim(**kw)
+    sim = tu.make_ackermann_tracking_sim(**kw, device="cpu", dtype=F64)
     state0 = interop.learned_state_from_numpy(
         sim.learned_dynamics,
         {f: np.stack([p[f] for p, _ in starts]) for f in starts[0][0]},
