@@ -25,8 +25,8 @@
 // block column (backward) of L per block of the solution: L is read once
 // per sweep, the RHS from shared memory.
 //
-// What bounds it on the H100: the factor's serial pivot chain (two
-// block-wide barriers per pivot, N pivots), then 2 N / nb sweep steps of
+// What bounds it on the H100: the factor's serial pivot chain (one warp
+// per diagonal block, see chol_blocked.cuh), then 2 N / nb sweep steps of
 // two barriers each; one block per matrix.  The solve against a saved
 // factor reads L (N^2 floats) once and is bound by those bytes at large
 // batch.
@@ -39,10 +39,9 @@
 namespace {
 
 using chol_blocked::kMaxNb;
-using chol_blocked::odd;
 using chol_blocked::small_bytes;
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 512;           // the solve against a saved factor
 constexpr int kMaxSmemBytes = 232448;  // 227 KB opt-in limit per block
 constexpr int kMaxR = 64;
 constexpr int kMaxN = 1024;
@@ -131,7 +130,9 @@ __device__ inline void sweeps(const float* Lm, int ld, const float* D,
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// W = chol_blocked::row_width(nb): 32 with 512 threads, 64 with 256.
+template <int W, int THREADS>
+__global__ void __launch_bounds__(THREADS)
 cholsolve_kernel(const float* __restrict__ K, const float* __restrict__ RHS,
                  int n, int N, int nb, int r, int p,
                  float* __restrict__ a_scratch,  // (B, N, N) unless p & 1
@@ -141,19 +142,27 @@ cholsolve_kernel(const float* __restrict__ K, const float* __restrict__ RHS,
                  float* __restrict__ Dinv,       // (B, N, nb)
                  float* __restrict__ logdet)     // (B,)
 {
-    extern __shared__ float smem[];
+    extern __shared__ __align__(16) float smem[];
     const int b = blockIdx.x;
     float* small = smem;
     float* T = small + small_bytes(nb) / sizeof(float);
     float* X = (p & 2) ? T + nb * r : x_scratch + (size_t)b * N * r;
     float* A = (p & 1) ? X + (size_t)N * r : a_scratch + (size_t)b * N * N;
-    const int ld = (p & 1) ? odd(N) : N;
+    const int ld = (p & 1) ? chol_blocked::stride(N) : N;
     float* Lb = L + (size_t)b * N * N;
     float* Db = Dinv + (size_t)b * N * nb;
 
     load_rhs(RHS + (size_t)b * n * r, n, N, r, X);
-    chol_blocked::factor(K + (size_t)b * n * n, n, N, nb, A, ld, small, Lb,
-                         Db);
+    // one inlined copy of the factor per home of the working matrix, so
+    // that the copy in shared memory addresses it as shared memory
+    const float* Kb = K + (size_t)b * n * n;
+    if (p & 1)
+        chol_blocked::factor<W>(Kb, n, N, nb, T + nb * r + (size_t)N * r, ld,
+                                small, Lb, Db);
+    else
+        chol_blocked::factor<W>(Kb, n, N, nb,
+                                a_scratch + (size_t)b * N * N, ld, small, Lb,
+                                Db);
     if (threadIdx.x < 32) {
         float acc = 0.0f;
         for (int i = threadIdx.x; i < N; i += 32)
@@ -188,6 +197,20 @@ solve_with_factor_kernel(const float* __restrict__ L,
     store_sol(X, n, r, sol + (size_t)b * n * r);
 }
 
+template <int W, int THREADS>
+int launch_cholsolve(const float* K, const float* RHS, float* sol, float* L,
+                     float* Dinv, float* logdet, float* a_scratch,
+                     float* x_scratch, int B, int n, int N, int nb, int r,
+                     int p, size_t smem, cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(
+        cholsolve_kernel<W, THREADS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cholsolve_kernel<W, THREADS><<<B, THREADS, smem, stream>>>(
+        K, RHS, n, N, nb, r, p, a_scratch, x_scratch, sol, L, Dinv, logdet);
+    return (int)cudaGetLastError();
+}
+
 int check_shape(int n, int N, int nb, int r) {
     if (nb < 1 || nb > kMaxNb || N % nb != 0 || N < n || n < 1 ||
         N > kMaxN + kMaxNb || r < 1 || r > kMaxR)
@@ -218,13 +241,13 @@ int cholsolve_logdet_launch(const float* K, const float* RHS, float* sol,
     if (check_shape(n, N, nb, r)) return -1;
     const int p = plan(N, nb, r, 1);
     const size_t smem = smem_bytes(N, nb, r, 1, p);
-    cudaError_t err = cudaFuncSetAttribute(
-        cholsolve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    cholsolve_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-        K, RHS, n, N, nb, r, p, a_scratch, x_scratch, sol, L, Dinv, logdet);
-    return (int)cudaGetLastError();
+    if (nb <= 32)
+        return launch_cholsolve<32, 512>(K, RHS, sol, L, Dinv, logdet,
+                                         a_scratch, x_scratch, B, n, N, nb, r,
+                                         p, smem, (cudaStream_t)stream);
+    return launch_cholsolve<64, 256>(K, RHS, sol, L, Dinv, logdet, a_scratch,
+                                     x_scratch, B, n, N, nb, r, p, smem,
+                                     (cudaStream_t)stream);
 }
 
 // sol (B, n, r) against a saved factor L (B, N, N), Dinv (B, N, nb) and

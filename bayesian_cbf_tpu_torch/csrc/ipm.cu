@@ -10,24 +10,33 @@
 // per-problem `done = score < tol` and non-finite-step rejection, and the
 // final best-or-current choice.
 //
-// Mapping: one thread per problem, as the TPU kernel puts the batch on the
-// vector lanes.  NX (variables), C (cones) and D (padded cone dimension)
-// are template parameters, so every per-cone and per-variable loop unrolls
-// and the state lives in registers.  All arrays are batch-fastest
-// ((..., B) layout), so neighbouring threads read neighbouring addresses.
+// Mapping: one lane per cone, a group of 4 neighbouring lanes per problem
+// (at C = 3 the fourth lane mirrors cone 0 and is never read), 8 problems
+// per 32-thread block, so that a batch of 256 spreads over 32 SMs and each
+// warp has a scheduler to itself.  NX (variables), C (cones) and D (padded
+// cone dimension) are template parameters, so every loop unrolls.  A lane
+// loads its cone's block of G (D x NX floats, contiguous in the callers'
+// (B, C, D, NX) layout) and of h once and keeps them, its slices of S and
+// Z, their best copies and the scaling state in registers: the per-cone
+// algebra (NT scaling, W products, step lengths, the corrector) runs in
+// parallel over the lanes.  What couples the cones (the dual residual,
+// the normal matrix, the KKT right-hand sides, the norms, the step
+// minimum, the finite flag) goes over the group by shuffles.  Every sum
+// over the cones is one chain in cone order (`gchain`), continued from
+// lane to lane: the order of the plain version's contractions, and all
+// lanes of a problem hold bit-identical values and take the same
+// branches; the 4 x 4 Cholesky and its solves are computed redundantly by
+// each lane.  Inputs and outputs are in the callers' layout: no transposed
+// copies around the launch.
 //
-// What bounds it on the H100: latency of a long dependent chain of scalar
-// f32 operations per thread (two KKT solves, the NT scaling and the step
-// length search per iteration), and register pressure — the iterate, its
-// best copy and the scaling state are several hundred floats at
-// (4, 4, 4), so the compiler spills some of them to local memory (L1).
+// What bounds it on the H100: latency of the dependent chain of scalar
+// f32 operations of one iteration (residuals -> scaling -> normal matrix
+// -> factor -> two KKT solves -> step lengths), with one warp per
+// scheduler and nothing to overlap it with; the bytes (a few hundred per
+// problem) and the operations are far below the card's rates.
 // A padded 1-dimensional cone (the nonnegative ray) carries zero rows of G
 // and h beyond its head; its tail coordinates start at zero and stay there
 // through the same arithmetic, exactly as in the plain version.
-// The problem data G and h are read from global memory through the
-// read-only path on each use instead of being held in registers.  The
-// launch has ceil(B / 128) blocks; at B = 256 only two SMs are busy,
-// which is the price of keeping each problem's chain in one thread.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,7 +45,9 @@ namespace {
 
 constexpr float kEps = 1e-14f;
 constexpr float kBig = 1e10f;
-constexpr int kThreads = 128;
+constexpr int kThreads = 32;   // 8 problems of 4 lanes
+constexpr int kGroup = 4;
+constexpr unsigned kFull = 0xffffffffu;
 
 template <int D>
 __device__ __forceinline__ float jdot(const float* U) {
@@ -151,50 +162,68 @@ __device__ __forceinline__ float max_step(const float* P, const float* Dd) {
     return fminf(fmaxf(fminf(t_quad, t_head), 0.0f), kBig);
 }
 
-template <int NX, int C, int D>
-struct Problem {
-    const float* __restrict__ G;  // (C, D, NX, B)
-    const float* __restrict__ h;  // (C, D, B)
-    const float* __restrict__ c;  // (NX, B)
-    int B, p;
-    __device__ __forceinline__ float g(int ci, int d, int i) const {
-        return __ldg(G + ((size_t)((ci * D + d) * NX + i)) * B + p);
-    }
-    __device__ __forceinline__ float hv(int ci, int d) const {
-        return __ldg(h + ((size_t)(ci * D + d)) * B + p);
-    }
-    __device__ __forceinline__ float cv(int i) const {
-        return __ldg(c + (size_t)i * B + p);
-    }
-};
-
-template <int NX, int C, int D>
-__device__ __forceinline__ float residuals(const Problem<NX, C, D>& P, const float* x,
-                                           const float (*S)[D], const float (*Z)[D],
-                                           float* rx, float (*rz)[D], float hnorm,
-                                           float cnorm) {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-        float a = P.cv(i);
-#pragma unroll
-        for (int ci = 0; ci < C; ++ci)
-#pragma unroll
-            for (int d = 0; d < D; ++d) a += P.g(ci, d, i) * Z[ci][d];
-        rx[i] = a;
-    }
-    float rzn = 0.0f, sz = 0.0f;
+// A sum over all cones and their coordinates, as one chain in cone order:
+// `term(a)` returns a with this lane's cone's terms added, d ascending.  In
+// round ci every lane continues the chain from the value so far and the
+// group keeps the lane of cone ci's result, so the sum is the one chain
+// init + cone 0's terms + cone 1's terms + ..., the order in which the
+// plain version's contraction over (cone, d) adds them, and every lane of
+// the group holds the same bits.
+template <int C, class Term>
+__device__ __forceinline__ float gchain(float init, int gbase, Term term) {
+    float acc = init;
 #pragma unroll
     for (int ci = 0; ci < C; ++ci)
+        acc = __shfl_sync(kFull, term(acc), gbase + ci);
+    return acc;
+}
+
+template <int C>
+__device__ __forceinline__ float gmin(float v, int gbase) {
+    float t = kBig;
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-            float a = 0.0f;
+    for (int ci = 0; ci < C; ++ci)
+        t = fminf(t, __shfl_sync(kFull, v, gbase + ci));
+    return t;
+}
+
+// This lane's cone: its block of G, of h and of the iterate.
+template <int NX, int D>
+struct Cone {
+    float g[D][NX], h[D], S[D], Z[D];
+};
+
+// The scale-relative KKT score of the point (x, S, Z), with the residuals
+// rx (group-wide) and rz (this cone) and s^T z (group-wide) as by-products.
+template <int NX, int C, int D>
+__device__ __forceinline__ float residuals(const Cone<NX, D>& k, const float* c,
+                                           const float* x, float* rx, float* rz,
+                                           float& sz, float hnorm, float cnorm,
+                                           int gbase) {
 #pragma unroll
-            for (int i = 0; i < NX; ++i) a += P.g(ci, d, i) * x[i];
-            a = a + S[ci][d] - P.hv(ci, d);
-            rz[ci][d] = a;
-            rzn += a * a;
-            sz += S[ci][d] * Z[ci][d];
-        }
+    for (int i = 0; i < NX; ++i)
+        rx[i] = gchain<C>(c[i], gbase, [&](float a) {
+#pragma unroll
+            for (int d = 0; d < D; ++d) a += k.g[d][i] * k.Z[d];
+            return a;
+        });
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+        float a = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NX; ++i) a += k.g[d][i] * x[i];
+        rz[d] = a + k.S[d] - k.h[d];
+    }
+    const float rzn = gchain<C>(0.0f, gbase, [&](float a) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) a += rz[d] * rz[d];
+        return a;
+    });
+    sz = gchain<C>(0.0f, gbase, [&](float a) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) a += k.S[d] * k.Z[d];
+        return a;
+    });
     float rxn = 0.0f;
 #pragma unroll
     for (int i = 0; i < NX; ++i) rxn += rx[i] * rx[i];
@@ -204,103 +233,119 @@ __device__ __forceinline__ float residuals(const Problem<NX, C, D>& P, const flo
 
 template <int NX, int C, int D>
 __global__ void __launch_bounds__(kThreads)
-ipm_kernel(const float* __restrict__ cT, const float* __restrict__ GT,
-           const float* __restrict__ hT, const float* __restrict__ sxT,
-           const float* __restrict__ sST, const float* __restrict__ sZT,
-           float* __restrict__ xT, float* __restrict__ ST, float* __restrict__ ZT,
-           int B, int iters, float tol) {
-    const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= B) return;
-    const Problem<NX, C, D> P{GT, hT, cT, B, p};
+ipm_kernel(const float* __restrict__ cG,   // (B, NX)
+           const float* __restrict__ G,    // (B, C, D, NX)
+           const float* __restrict__ hG,   // (B, C, D)
+           const float* __restrict__ sx,   // (B, NX)
+           const float* __restrict__ sS,   // (B, C, D)
+           const float* __restrict__ sZ,   // (B, C, D)
+           float* __restrict__ xo, float* __restrict__ So,
+           float* __restrict__ Zo, int B, int iters, float tol) {
+    static_assert(C <= kGroup, "one lane per cone in a group of 4");
+    const int lane = threadIdx.x & 31;
+    const int gl = lane & (kGroup - 1);
+    const int gbase = lane - gl;
+    const int slot = (blockIdx.x * kThreads + threadIdx.x) / kGroup;
+    // lanes past the batch repeat its last problem and lanes past the
+    // cones repeat cone 0: they run the same shuffles and store nothing
+    const bool store = slot < B && gl < C;
+    const int p = min(slot, B - 1);
+    const int ci = gl < C ? gl : 0;
     const float nu = (float)C;
 
-    float hn = 0.0f, cn = 0.0f;
+    Cone<NX, D> k;
+    float c[NX], x[NX];
+    {
+        const float* gp = G + ((size_t)p * C + ci) * D * NX;
+        const float* hp = hG + ((size_t)p * C + ci) * D;
+        const float* Sp = sS + ((size_t)p * C + ci) * D;
+        const float* Zp = sZ + ((size_t)p * C + ci) * D;
 #pragma unroll
-    for (int ci = 0; ci < C; ++ci)
+        for (int d = 0; d < D; ++d) {
 #pragma unroll
-        for (int d = 0; d < D; ++d) hn += P.hv(ci, d) * P.hv(ci, d);
+            for (int i = 0; i < NX; ++i) k.g[d][i] = __ldg(gp + d * NX + i);
+            k.h[d] = __ldg(hp + d);
+            k.S[d] = __ldg(Sp + d);
+            k.Z[d] = __ldg(Zp + d);
+        }
 #pragma unroll
-    for (int i = 0; i < NX; ++i) cn += P.cv(i) * P.cv(i);
+        for (int i = 0; i < NX; ++i) {
+            c[i] = __ldg(cG + (size_t)p * NX + i);
+            x[i] = __ldg(sx + (size_t)p * NX + i);
+        }
+    }
+
+    const float hn = gchain<C>(0.0f, gbase, [&](float a) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) a += k.h[d] * k.h[d];
+        return a;
+    });
+    float cn = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NX; ++i) cn += c[i] * c[i];
     const float hnorm = fmaxf(1.0f, sqrtf(hn));
     const float cnorm = fmaxf(1.0f, sqrtf(cn));
 
-    float x[NX], S[C][D], Z[C][D];
-    float bx[NX], bS[C][D], bZ[C][D];
+    float bx[NX], bS[D], bZ[D];
     float bscore = INFINITY;
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
-        x[i] = sxT[(size_t)i * B + p];
-        bx[i] = 0.0f;
+    for (int i = 0; i < NX; ++i) bx[i] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+        bS[d] = d == 0 ? 1.0f : 0.0f;
+        bZ[d] = d == 0 ? 1.0f : 0.0f;
     }
-#pragma unroll
-    for (int ci = 0; ci < C; ++ci)
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-            S[ci][d] = sST[(size_t)(ci * D + d) * B + p];
-            Z[ci][d] = sZT[(size_t)(ci * D + d) * B + p];
-            bS[ci][d] = d == 0 ? 1.0f : 0.0f;
-            bZ[ci][d] = d == 0 ? 1.0f : 0.0f;
-        }
 
-    float rx[NX], rz[C][D];
+    float rx[NX], rz[D], sz;
     for (int it = 0; it < iters; ++it) {
-        const float score = residuals<NX, C, D>(P, x, S, Z, rx, rz, hnorm, cnorm);
+        const float score = residuals<NX, C, D>(k, c, x, rx, rz, sz, hnorm,
+                                                cnorm, gbase);
         if (score < bscore) {
 #pragma unroll
             for (int i = 0; i < NX; ++i) bx[i] = x[i];
 #pragma unroll
-            for (int ci = 0; ci < C; ++ci)
-#pragma unroll
-                for (int d = 0; d < D; ++d) {
-                    bS[ci][d] = S[ci][d];
-                    bZ[ci][d] = Z[ci][d];
-                }
+            for (int d = 0; d < D; ++d) {
+                bS[d] = k.S[d];
+                bZ[d] = k.Z[d];
+            }
         }
         bscore = fminf(score, bscore);
         const bool done = score < tol;
+        const float mu = sz / nu;
 
-        float mu = 0.0f;
+        float Wb[D], eta, lam[D], jg[NX];
+        nt_scaling<D>(k.S, k.Z, Wb, eta);
+        w_mul<D>(Wb, eta, k.Z, lam);
 #pragma unroll
-        for (int ci = 0; ci < C; ++ci)
+        for (int i = 0; i < NX; ++i) {
+            float a = 0.0f;
 #pragma unroll
-            for (int d = 0; d < D; ++d) mu += S[ci][d] * Z[ci][d];
-        mu /= nu;
-
-        float Wb[C][D], eta[C], lam[C][D], jg[C][NX];
-#pragma unroll
-        for (int ci = 0; ci < C; ++ci) {
-            nt_scaling<D>(S[ci], Z[ci], Wb[ci], eta[ci]);
-            w_mul<D>(Wb[ci], eta[ci], Z[ci], lam[ci]);
-#pragma unroll
-            for (int i = 0; i < NX; ++i) {
-                float a = 0.0f;
-#pragma unroll
-                for (int d = 0; d < D; ++d)
-                    a += (d == 0 ? Wb[ci][d] : -Wb[ci][d]) * P.g(ci, d, i);
-                jg[ci][i] = a;
-            }
+            for (int d = 0; d < D; ++d)
+                a += (d == 0 ? Wb[d] : -Wb[d]) * k.g[d][i];
+            jg[i] = a;
         }
 
-        // H = G^T W^{-2} G (+ 1e-12 tr H I), lower triangle, then Cholesky
-        float Lf[NX][NX];
+        // H = G^T W^{-2} G (+ 1e-12 tr H I), lower triangle, each entry one
+        // chain over the group's cones; then its Cholesky factor
+        float Lf[NX][NX], w2g[D][NX];
+        const float e2 = eta * eta;
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+#pragma unroll
+            for (int j = 0; j < NX; ++j) {
+                const float jw = d == 0 ? Wb[d] : -Wb[d];
+                const float gj = k.g[d][j];
+                w2g[d][j] = (2.0f * jw * jg[j] - (d == 0 ? gj : -gj)) / e2;
+            }
 #pragma unroll
         for (int i = 0; i < NX; ++i)
 #pragma unroll
-            for (int j = 0; j <= i; ++j) {
-                float a = 0.0f;
+            for (int j = 0; j <= i; ++j)
+                Lf[i][j] = gchain<C>(0.0f, gbase, [&](float a) {
 #pragma unroll
-                for (int ci = 0; ci < C; ++ci) {
-                    const float e2 = eta[ci] * eta[ci];
-#pragma unroll
-                    for (int d = 0; d < D; ++d) {
-                        const float jw = d == 0 ? Wb[ci][d] : -Wb[ci][d];
-                        const float gj = P.g(ci, d, j);
-                        const float w2g = (2.0f * jw * jg[ci][j] - (d == 0 ? gj : -gj)) / e2;
-                        a += P.g(ci, d, i) * w2g;
-                    }
-                }
-                Lf[i][j] = a;
-            }
+                    for (int d = 0; d < D; ++d) a += k.g[d][i] * w2g[d][j];
+                    return a;
+                });
         float trH = 0.0f;
 #pragma unroll
         for (int i = 0; i < NX; ++i) trH += Lf[i][i];
@@ -312,147 +357,142 @@ ipm_kernel(const float* __restrict__ cT, const float* __restrict__ GT,
             for (int j = 0; j <= i; ++j) {
                 float acc = Lf[i][j];
 #pragma unroll
-                for (int k = 0; k < j; ++k) acc -= Lf[i][k] * Lf[j][k];
+                for (int q = 0; q < j; ++q) acc -= Lf[i][q] * Lf[j][q];
                 Lf[i][j] = (i == j) ? sqrtf(fmaxf(acc, kEps)) : acc / Lf[j][j];
             }
 
         // KKT solve: W dz + W^{-T} ds = -Dscaled
-        auto kkt_solve = [&](const float (*Ds)[D], float* dx, float (*dS)[D],
-                             float (*dZ)[D]) {
-            float rhs_cd[C][D], w2r[C][D];
+        auto kkt_solve = [&](const float* Ds, float* dx, float* dS, float* dZ) {
+            float rhs_cd[D], w2r[D], wd[D];
+            w_mul<D>(Wb, eta, Ds, wd);
 #pragma unroll
-            for (int ci = 0; ci < C; ++ci) {
-                float wd[D];
-                w_mul<D>(Wb[ci], eta[ci], Ds[ci], wd);
-#pragma unroll
-                for (int d = 0; d < D; ++d) rhs_cd[ci][d] = rz[ci][d] - wd[d];
-                winv2_mul<D>(Wb[ci], eta[ci], rhs_cd[ci], w2r[ci]);
-            }
+            for (int d = 0; d < D; ++d) rhs_cd[d] = rz[d] - wd[d];
+            winv2_mul<D>(Wb, eta, rhs_cd, w2r);
             float y[NX];
 #pragma unroll
+            for (int i = 0; i < NX; ++i)
+                y[i] = -rx[i] - gchain<C>(0.0f, gbase, [&](float a) {
+#pragma unroll
+                    for (int d = 0; d < D; ++d) a += k.g[d][i] * w2r[d];
+                    return a;
+                });
+#pragma unroll
             for (int i = 0; i < NX; ++i) {
-                float a = 0.0f;
+                float acc = y[i];
 #pragma unroll
-                for (int ci = 0; ci < C; ++ci)
-#pragma unroll
-                    for (int d = 0; d < D; ++d) a += P.g(ci, d, i) * w2r[ci][d];
-                float acc = -rx[i] - a;
-#pragma unroll
-                for (int k = 0; k < i; ++k) acc -= Lf[i][k] * y[k];
+                for (int q = 0; q < i; ++q) acc -= Lf[i][q] * y[q];
                 y[i] = acc / Lf[i][i];
             }
 #pragma unroll
             for (int i = NX - 1; i >= 0; --i) {
                 float acc = y[i];
 #pragma unroll
-                for (int k = i + 1; k < NX; ++k) acc -= Lf[k][i] * dx[k];
+                for (int q = i + 1; q < NX; ++q) acc -= Lf[q][i] * dx[q];
                 dx[i] = acc / Lf[i][i];
             }
+            float t[D];
 #pragma unroll
-            for (int ci = 0; ci < C; ++ci) {
-                float t[D];
+            for (int d = 0; d < D; ++d) {
+                float gdx = 0.0f;
 #pragma unroll
-                for (int d = 0; d < D; ++d) {
-                    float gdx = 0.0f;
-#pragma unroll
-                    for (int i = 0; i < NX; ++i) gdx += P.g(ci, d, i) * dx[i];
-                    dS[ci][d] = -rz[ci][d] - gdx;
-                    t[d] = gdx + rhs_cd[ci][d];
-                }
-                winv2_mul<D>(Wb[ci], eta[ci], t, dZ[ci]);
+                for (int i = 0; i < NX; ++i) gdx += k.g[d][i] * dx[i];
+                dS[d] = -rz[d] - gdx;
+                t[d] = gdx + rhs_cd[d];
             }
+            winv2_mul<D>(Wb, eta, t, dZ);
         };
 
         // affine (predictor) direction
-        float dxa[NX], dSa[C][D], dZa[C][D];
+        float dxa[NX], dSa[D], dZa[D];
         kkt_solve(lam, dxa, dSa, dZa);
-        float amin = kBig;
-#pragma unroll
-        for (int ci = 0; ci < C; ++ci) {
-            amin = fminf(amin, max_step<D>(S[ci], dSa[ci]));
-            amin = fminf(amin, max_step<D>(Z[ci], dZa[ci]));
-        }
+        float amin = gmin<C>(fminf(max_step<D>(k.S, dSa), max_step<D>(k.Z, dZa)),
+                             gbase);
         const float alpha_a = fminf(1.0f, amin);
-        float mu_a = 0.0f;
+        float Sa[D], Za[D];
 #pragma unroll
-        for (int ci = 0; ci < C; ++ci)
+        for (int d = 0; d < D; ++d) {
+            Sa[d] = k.S[d] + alpha_a * dSa[d];
+            Za[d] = k.Z[d] + alpha_a * dZa[d];
+        }
+        const float mu_a = gchain<C>(0.0f, gbase, [&](float a) {
 #pragma unroll
-            for (int d = 0; d < D; ++d)
-                mu_a += (S[ci][d] + alpha_a * dSa[ci][d]) * (Z[ci][d] + alpha_a * dZa[ci][d]);
-        mu_a /= nu;
+            for (int d = 0; d < D; ++d) a += Sa[d] * Za[d];
+            return a;
+        }) / nu;
         const float ratio = mu_a / fmaxf(mu, kEps);
         const float sigma = fminf(fmaxf(ratio * ratio * ratio, 0.0f), 1.0f);
 
         // corrector
-        float Dc[C][D];
-#pragma unroll
-        for (int ci = 0; ci < C; ++ci) {
+        float Dc[D];
+        {
             float a1[D], a2[D], corr[D], ll[D], rs[D];
-            winv_mul<D>(Wb[ci], eta[ci], dSa[ci], a1);
-            w_mul<D>(Wb[ci], eta[ci], dZa[ci], a2);
+            winv_mul<D>(Wb, eta, dSa, a1);
+            w_mul<D>(Wb, eta, dZa, a2);
             jmul<D>(a1, a2, corr);
-            jmul<D>(lam[ci], lam[ci], ll);
+            jmul<D>(lam, lam, ll);
 #pragma unroll
             for (int d = 0; d < D; ++d)
                 rs[d] = ll[d] + corr[d] - (d == 0 ? sigma * mu : 0.0f);
-            jinv_mul<D>(lam[ci], rs, Dc[ci]);
+            jinv_mul<D>(lam, rs, Dc);
         }
-        float dx[NX], dS[C][D], dZ[C][D];
+        float dx[NX], dS[D], dZ[D];
         kkt_solve(Dc, dx, dS, dZ);
-        amin = kBig;
-#pragma unroll
-        for (int ci = 0; ci < C; ++ci) {
-            amin = fminf(amin, max_step<D>(S[ci], dS[ci]));
-            amin = fminf(amin, max_step<D>(Z[ci], dZ[ci]));
-        }
+        amin = gmin<C>(fminf(max_step<D>(k.S, dS), max_step<D>(k.Z, dZ)), gbase);
         const float alpha = fminf(0.99f * amin, 1.0f);
 
-        float xn[NX], Sn[C][D], Zn[C][D];
-        bool finite = true;
+        float xn[NX], Sn[D], Zn[D];
+        bool fin = true;
 #pragma unroll
         for (int i = 0; i < NX; ++i) {
             xn[i] = x[i] + alpha * dx[i];
-            finite = finite && isfinite(xn[i]);
+            fin = fin && isfinite(xn[i]);
         }
 #pragma unroll
-        for (int ci = 0; ci < C; ++ci)
-#pragma unroll
-            for (int d = 0; d < D; ++d) {
-                Sn[ci][d] = S[ci][d] + alpha * dS[ci][d];
-                Zn[ci][d] = Z[ci][d] + alpha * dZ[ci][d];
-                finite = finite && isfinite(Sn[ci][d]) && isfinite(Zn[ci][d]);
-            }
+        for (int d = 0; d < D; ++d) {
+            Sn[d] = k.S[d] + alpha * dS[d];
+            Zn[d] = k.Z[d] + alpha * dZ[d];
+            fin = fin && isfinite(Sn[d]) && isfinite(Zn[d]);
+        }
+        // the step is taken only if it is finite on every cone
+        constexpr unsigned cones = (1u << C) - 1u;
+        const bool finite =
+            ((__ballot_sync(kFull, fin) >> gbase) & cones) == cones;
         if (!(done || !finite)) {
 #pragma unroll
             for (int i = 0; i < NX; ++i) x[i] = xn[i];
 #pragma unroll
-            for (int ci = 0; ci < C; ++ci)
-#pragma unroll
-                for (int d = 0; d < D; ++d) {
-                    S[ci][d] = Sn[ci][d];
-                    Z[ci][d] = Zn[ci][d];
-                }
+            for (int d = 0; d < D; ++d) {
+                k.S[d] = Sn[d];
+                k.Z[d] = Zn[d];
+            }
         }
     }
 
-    const float score = residuals<NX, C, D>(P, x, S, Z, rx, rz, hnorm, cnorm);
+    const float score = residuals<NX, C, D>(k, c, x, rx, rz, sz, hnorm, cnorm,
+                                            gbase);
     const bool better = score < bscore;
-#pragma unroll
-    for (int i = 0; i < NX; ++i) xT[(size_t)i * B + p] = better ? x[i] : bx[i];
-#pragma unroll
-    for (int ci = 0; ci < C; ++ci)
+    if (store) {
+        float* So_p = So + ((size_t)p * C + ci) * D;
+        float* Zo_p = Zo + ((size_t)p * C + ci) * D;
 #pragma unroll
         for (int d = 0; d < D; ++d) {
-            ST[(size_t)(ci * D + d) * B + p] = better ? S[ci][d] : bS[ci][d];
-            ZT[(size_t)(ci * D + d) * B + p] = better ? Z[ci][d] : bZ[ci][d];
+            So_p[d] = better ? k.S[d] : bS[d];
+            Zo_p[d] = better ? k.Z[d] : bZ[d];
         }
+        if (gl == 0) {
+#pragma unroll
+            for (int i = 0; i < NX; ++i)
+                xo[(size_t)p * NX + i] = better ? x[i] : bx[i];
+        }
+    }
 }
 
 template <int NX, int C, int D>
 int launch(const float* c, const float* G, const float* h, const float* sx,
            const float* sS, const float* sZ, float* x, float* S, float* Z, int B,
            int iters, float tol, cudaStream_t stream) {
-    const int blocks = (B + kThreads - 1) / kThreads;
+    const int per_block = kThreads / kGroup;
+    const int blocks = (B + per_block - 1) / per_block;
     ipm_kernel<NX, C, D><<<blocks, kThreads, 0, stream>>>(c, G, h, sx, sS, sZ, x, S, Z,
                                                          B, iters, tol);
     return (int)cudaGetLastError();
@@ -463,7 +503,8 @@ int launch(const float* c, const float* G, const float* h, const float* sx,
 // ---- host launchers (plain C interface, loaded with ctypes) ----
 extern "C" {
 
-// Batch-fastest layout: c (nx, B), G (C, d, nx, B), h / S / Z (C, d, B).
+// The callers' layout, contiguous: c, sx, x (B, nx); G (B, C, d, nx); h, sS,
+// sZ, S, Z (B, C, d).
 // Instantiated shapes (nx, C, d): (4, 4, 4), the unicycle controller's
 // [u (2), relax, t] with four cones of dimension 4; (4, 3, 3), the
 // pendulum controller's [u, delta, y, s] with cones of dimensions (3, 3, 1)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -93,7 +94,35 @@ def ptxas_report(name: str) -> str:
     if not path.exists():
         return "(library was built by an earlier process; no report kept)"
     return "\n".join(line for line in path.read_text().splitlines()
-                     if "ptxas" in line)
+                     if "ptxas" in line or "bytes stack frame" in line)
+
+
+def ptxas_usage(name: str) -> list:
+    """Registers, stack and spill bytes of each kernel in the current
+    build of `name`, read from its ptxas report: a list of dicts with the
+    keys kernel (its name with its integer template arguments),
+    registers, stack_bytes, spill_store_bytes and spill_load_bytes."""
+    out = []
+    for line in ptxas_report(name).splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"([a-z_]+_kernel)(?:I((?:Li\d+E)+)E)?",
+                          entry.group(1))
+            targs = re.findall(r"Li(\d+)E", m.group(2) or "") if m else []
+            kernel = (m.group(1) if m else entry.group(1)) + (
+                f"<{', '.join(targs)}>" if targs else "")
+            out.append(dict(kernel=kernel, registers=None, stack_bytes=0,
+                            spill_store_bytes=0, spill_load_bytes=0))
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if spill and out:
+            out[-1].update(stack_bytes=int(spill.group(1)),
+                           spill_store_bytes=int(spill.group(2)),
+                           spill_load_bytes=int(spill.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and out:
+            out[-1]["registers"] = int(used.group(1))
+    return out
 
 
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

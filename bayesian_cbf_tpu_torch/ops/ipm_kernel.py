@@ -8,7 +8,8 @@ from a start point (x, S, Z), and returns the best iterate.  A CPU tensor
 takes `ipm_plain`; a CUDA tensor launches the kernel or raises.
 
 Shapes: c (B, nx), Gp (B, C, d, nx), hp (B, C, d), sx (B, nx),
-sS / sZ (B, C, d).
+sS / sZ (B, C, d), all contiguous; the results x (B, nx), S / Z (B, C, d)
+come back contiguous in the same layout.
 """
 from __future__ import annotations
 
@@ -231,39 +232,60 @@ def ipm_plain(c, Gp, hp, sx, sS, sZ, iters: int, tol: float):
     return sel(better, x, bx), sel(better, S, bS), sel(better, Z, bZ)
 
 
+def check_ipm_args(c, Gp, hp, sx, sS, sZ):
+    """(B, C, d, nx) of a batch of padded cone problems and a start point,
+    or ValueError.  The one rule for both devices: six tensors of one
+    floating dtype (float32 on a card: the kernel's) on one device, of the
+    shapes c, sx (B, nx), Gp (B, C, d, nx), hp, sS, sZ (B, C, d) with
+    B >= 1, each contiguous: the kernel reads the callers' layout as it
+    stands, and no copy is made here."""
+    if Gp.ndim != 4:
+        raise ValueError(f"ipm: Gp must be (B, C, d, nx), got "
+                         f"{tuple(Gp.shape)}")
+    B, C, d, nx = Gp.shape
+    if min(B, C, d, nx) < 1:
+        raise ValueError(f"ipm: empty problem batch {tuple(Gp.shape)}")
+    if not c.dtype.is_floating_point or (c.device.type == "cuda"
+                                         and c.dtype != torch.float32):
+        raise ValueError(f"ipm: no solver for dtype {c.dtype} on {c.device}")
+    shapes = (("c", c, (B, nx)), ("Gp", Gp, (B, C, d, nx)),
+              ("hp", hp, (B, C, d)), ("sx", sx, (B, nx)),
+              ("sS", sS, (B, C, d)), ("sZ", sZ, (B, C, d)))
+    for name, a, shp in shapes:
+        if a.dtype != c.dtype or tuple(a.shape) != shp \
+                or a.device != c.device:
+            raise ValueError(f"ipm: expected {name} {c.dtype} {shp} on "
+                             f"{c.device}, got {a.dtype} {tuple(a.shape)} "
+                             f"on {a.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"ipm: {name} must be contiguous")
+    return B, C, d, nx
+
+
 def ipm(c, Gp, hp, sx, sS, sZ, iters: int, tol: float):
     """Dispatch by device: `ipm_plain` on the CPU, the CUDA kernel (which
-    replaces the TPU kernel `pallas_ipm._ipm_kernel`) on a card."""
+    replaces the TPU kernel `pallas_ipm._ipm_kernel`) on a card.  Inputs as
+    `check_ipm_args` wants them; returns contiguous x (B, nx), S and Z
+    (B, C, d).  The kernel takes and gives the callers' layout: one lane per
+    cone reads its (d, nx) block of Gp, which is contiguous there."""
+    B, C, d, nx = check_ipm_args(c, Gp, hp, sx, sS, sZ)
     if c.device.type == "cpu":
         return ipm_plain(c, Gp, hp, sx, sS, sZ, iters, tol)
     if c.device.type != "cuda":
         raise ValueError(f"ipm: no kernel for device {c.device}")
-    B, C, d, nx = Gp.shape
-    args = (c, Gp, hp, sx, sS, sZ)
-    shapes = ((B, nx), (B, C, d, nx), (B, C, d), (B, nx), (B, C, d),
-              (B, C, d))
-    for a, shp in zip(args, shapes):
-        if a.dtype != torch.float32 or tuple(a.shape) != shp \
-                or a.device != c.device:
-            raise ValueError(f"ipm: expected float32 {shp} on {c.device}, "
-                             f"got {a.dtype} {tuple(a.shape)} on {a.device}")
     lib = _build.load("ipm")
-    if B < 1 or not lib.ipm_supported(nx, C, d):
-        raise ValueError(f"ipm: no kernel instantiation for B={B}, "
+    if not lib.ipm_supported(nx, C, d):
+        raise ValueError(f"ipm: no kernel instantiation for "
                          f"(nx, C, d)=({nx}, {C}, {d})")
-    # batch-fastest layout: neighbouring threads read neighbouring addresses
-    cT, GT, hT, sxT, sST, sZT = (a.movedim(0, -1).contiguous() for a in args)
-    xT = torch.empty_like(sxT)
-    ST = torch.empty_like(sST)
-    ZT = torch.empty_like(sZT)
-    rc = lib.ipm_launch(cT.data_ptr(), GT.data_ptr(), hT.data_ptr(),
-                        sxT.data_ptr(), sST.data_ptr(), sZT.data_ptr(),
-                        xT.data_ptr(), ST.data_ptr(), ZT.data_ptr(),
+    x, S, Z = torch.empty_like(sx), torch.empty_like(sS), torch.empty_like(sZ)
+    rc = lib.ipm_launch(c.data_ptr(), Gp.data_ptr(), hp.data_ptr(),
+                        sx.data_ptr(), sS.data_ptr(), sZ.data_ptr(),
+                        x.data_ptr(), S.data_ptr(), Z.data_ptr(),
                         B, nx, C, d, int(iters), float(tol),
                         torch.cuda.current_stream(c.device).cuda_stream)
     _build.check(rc, "ipm_launch")
     ipm.launches += 1
-    return xT.movedim(-1, 0), ST.movedim(-1, 0), ZT.movedim(-1, 0)
+    return x, S, Z
 
 
 ipm.launches = 0

@@ -15,7 +15,10 @@ Phases (each raises on failure; nothing is caught):
                  call computes the same function) that call, and the
                  kernel's bound from its bytes and operations.  The IPM
                  runs at both instantiations: (4, 4, 4) on the unicycle's
-                 cones and (4, 3, 3) on the pendulum's.
+                 cones and (4, 3, 3) on the pendulum's, each also on 1003
+                 random cones (no whole number of blocks).  The blocked
+                 factor's two kernels and the IPM print their registers,
+                 stack and spill bytes beside their times.
   4. main     -- the batched unicycle learn-and-control loop (B=256
                  episodes, K=200, 2000 steps, bench.py's configuration),
                  with launch counts and the batched-learning outcome gate.
@@ -172,6 +175,24 @@ def phase_build():
         print(f"[build] {name}:\n{_build.ptxas_report(name)}", flush=True)
 
 
+def _usage(source, kernel):
+    """Registers, stack and spill bytes (stores + loads) that ptxas reports
+    for `kernel` (its name with its template arguments) in this run's build
+    of csrc/`source`.cu."""
+    from bayesian_cbf_tpu_torch.ops import _build
+    hits = [u for u in _build.ptxas_usage(source) if u["kernel"] == kernel]
+    _require(len(hits) == 1 and hits[0]["registers"],
+             f"no ptxas report for {kernel} in {source}")
+    u = hits[0]
+    return dict(registers=u["registers"], stack_bytes=u["stack_bytes"],
+                spill_bytes=u["spill_store_bytes"] + u["spill_load_bytes"])
+
+
+def _usage_text(u):
+    return (f"{u['registers']} registers, {u['stack_bytes']} bytes of stack, "
+            f"{u['spill_bytes']} bytes of spills")
+
+
 def _check_chol_kernels(dev):
     from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
     out = {}
@@ -276,20 +297,23 @@ def _step0_cones(dev, x0s, seed):
 
 
 def _ipm_flops(B, nx, C, d, iters):
-    """f32 operations of `iters` IPM iterations on B problems, counted
-    from the loops of csrc/ipm.cu (a multiply-add counts two): the
-    residuals, the normal matrix G^T W^-2 G and its factor, two KKT
-    solves, the cone algebra (scaling, step lengths, corrector)."""
+    """f32 operations that `iters` IPM iterations on B problems need (a
+    multiply-add counts two): the residuals, the normal matrix
+    G^T W^-2 G and its factor, two KKT solves, the cone algebra (scaling,
+    step lengths, corrector), each once per problem.  What the kernel
+    repeats on every lane of a problem (the factor and its solves, the
+    chained sums) is its own cost and does not enter."""
     per_iter = (10 * C * d * nx + 2.5 * C * d * nx * (nx + 1)
                 + (2 / 3) * nx ** 3 + 4 * nx * nx + 120 * C * d + 100 * C)
     return B * (iters * per_iter + 4 * C * d * nx)
 
 
-def _check_ipm_kernel(dev, label, rand, real):
+def _check_ipm_kernel(dev, label, rand, real, many):
     """The IPM kernel at the instantiation of the problems' shape, on
     random cones of that structure (`rand`) and on a path's real cones
     (`real`), cold (25 iterations, each path's start) and warm-started
-    (15), against the plain version and an f64 solve."""
+    (15), against the plain version and an f64 solve; then on `many`, a
+    larger batch of random cones that fills no whole number of blocks."""
     from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
     from bayesian_cbf_tpu_torch.solvers.socp import _interior_shift
     B, C, d, nx = real[1].shape
@@ -363,8 +387,9 @@ def _check_ipm_kernel(dev, label, rand, real):
                 _require(int(conv.sum()) >= B // 2,
                          f"{tag}: the f64 reference converged on fewer than "
                          f"half")
-                dk = quant(rel(got[0].double(), exact[0]).amax(-1)[conv])
-                dp = quant(rel(want[0].double(), exact[0]).amax(-1)[conv])
+                far_k = rel(got[0].double(), exact[0]).amax(-1)[conv]
+                far_p = rel(want[0].double(), exact[0]).amax(-1)[conv]
+                dk, dp = quant(far_k), quant(far_p)
                 qx = quant(dx)
                 qs = quant((sg.double() / sw.double()).log10().abs())
                 line.append(f"kernel vs plain over all {B}, median / 90%: rel "
@@ -373,7 +398,9 @@ def _check_ipm_kernel(dev, label, rand, real):
                 line.append(f"rel |x - x_f64| on the {int(conv.sum())} f64-"
                             f"converged, median / 90%: kernel {dk[0]:.3e} / "
                             f"{dk[1]:.3e}, plain f32 {dp[0]:.3e} / "
-                            f"{dp[1]:.3e}")
+                            f"{dp[1]:.3e}; farther than 0.1 (stalled): "
+                            f"kernel {int((far_k > 0.1).sum())}, plain "
+                            f"{int((far_p > 0.1).sum())}")
                 _require(all(k <= max(2.0 * p, 1e-4) for k, p in zip(dk, dp)),
                          f"{tag}: x farther from f64 than plain f32 "
                          f"({dk} vs {dp})")
@@ -391,16 +418,65 @@ def _check_ipm_kernel(dev, label, rand, real):
                     worst_err = max(worst_err,
                                     float((got[0] - want[0]).abs().max()))
             print("; ".join(line), flush=True)
+    _check_ipm_ragged_batch(dev, label, many)
     ms = _cuda_ms(lambda: ik.ipm(*real, *cold, 25, 1e-10), 50)
     plain_ms = _cuda_ms(lambda: ik.ipm_plain(*real, *cold, 25, 1e-10), 5)
     bound = _bound(_ipm_flops(B, nx, C, d, 25),
                    F32 * B * (3 * nx + C * d * nx + 5 * C * d))
+    usage = _usage("ipm", f"ipm_kernel<{nx}, {C}, {d}>")
     print(f"[ipm {label}] (nx, C, d) = ({nx}, {C}, {d}), B={B}, 25 "
           f"iterations: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
           f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}; the kernel is "
-          f"bound by the latency of its serial per-thread chain)", flush=True)
+          f"bound by the latency of its serial per-lane chain); "
+          f"{_usage_text(usage)}", flush=True)
+    _require(usage["spill_bytes"] == 0 and usage["stack_bytes"] == 0,
+             f"[ipm {label}]: the kernel spills ({usage})")
     return dict(max_abs_err=worst_err, ms=ms, plain_ms=plain_ms,
-                library_ms=None, **bound)
+                library_ms=None, **bound, **usage)
+
+
+def _check_ipm_ragged_batch(dev, label, prob):
+    """A batch that is no multiple of the kernel's block (8 problems of 4
+    lanes), on random cones, cold, 25 iterations, against the plain
+    version: contiguous finite outputs in the callers' layout, the score's
+    median within twice plain's, as many converged problems within 5%, and
+    the optimal values equal where both converge; then the kernel's time
+    on the batch and on one problem of it."""
+    from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
+    B, C, d, nx = prob[1].shape
+    _require(B % 8 != 0, "the ragged batch fills whole blocks")
+    e = torch.zeros((B, C, d), dtype=torch.float32, device=dev)
+    e[..., 0] = 1.0
+    cold = [torch.zeros((B, nx), dtype=torch.float32, device=dev), e, e]
+    got = ik.ipm(*prob, *cold, 25, 1e-10)
+    want = ik.ipm_plain(*prob, *cold, 25, 1e-10)
+    torch.cuda.synchronize()
+    tag = f"[ipm {label} random B={B}]"
+    _require([tuple(t.shape) for t in got] == [(B, nx), (B, C, d), (B, C, d)]
+             and all(t.is_contiguous() and bool(torch.isfinite(t).all())
+                     for t in got), f"{tag}: outputs malformed")
+    sg = ik.score_padded(*prob, *got)
+    sw = ik.score_padded(*prob, *want)
+    n_k, n_p = int((sg < 1e-3).sum()), int((sw < 1e-3).sum())
+    both = (sg < 1e-3) & (sw < 1e-3)
+    cost = lambda x: (prob[0] * x).sum(-1)
+    rel_c = float(((cost(got[0]) - cost(want[0])).abs()
+                   / (1.0 + cost(want[0]).abs()))[both].max())
+    print(f"{tag} median KKT score kernel {float(sg.median()):.3e} plain "
+          f"{float(sw.median()):.3e}; score < 1e-3: kernel {n_k}, plain "
+          f"{n_p}, both {int(both.sum())}; max rel |d cost| on those "
+          f"{rel_c:.3e}", flush=True)
+    _require(float(sg.median()) <= 2.0 * float(sw.median()),
+             f"{tag}: kernel score above 2x plain")
+    _require(n_k >= n_p - B // 20, f"{tag}: fewer converged than plain")
+    _require(int(both.sum()) >= B // 2 and rel_c < 1e-3,
+             f"{tag}: optimal value disagrees ({rel_c})")
+    # latency against throughput: the whole batch, and one problem alone
+    one = [a[:1].contiguous() for a in prob + cold]
+    ms_all = _cuda_ms(lambda: ik.ipm(*prob, *cold, 25, 1e-10), 50)
+    ms_one = _cuda_ms(lambda: ik.ipm(*one, 25, 1e-10), 50)
+    print(f"{tag} 25 iterations: {ms_all:.3f} ms; one problem of them "
+          f"alone {ms_one:.3f} ms", flush=True)
 
 
 def _pendulum_step0_cones(dev, x0s):
@@ -593,11 +669,12 @@ def _check_chol_dinv_kernel(dev):
     # L of the padded K only, without the diagonal-block inverses
     library_ms = _cuda_ms(lambda: torch.linalg.cholesky_ex(Kp), 20)
     bound = _chol_dinv_bound(B, n, N, nb)
+    usage = _usage("chol_blocked", "chol_dinv_kernel<32, 512>")
     print(f"[chol_dinv] (256, 200): kernel {ms:.3f} ms, plain {plain_ms:.3f} "
           f"ms, library {library_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
-          f"({bound['bound_by']})", flush=True)
+          f"({bound['bound_by']}); {_usage_text(usage)}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, **bound)
+                library_ms=library_ms, **bound, **usage)
 
 
 def _check_cholsolve_kernels(dev):
@@ -668,14 +745,16 @@ def _check_cholsolve_kernels(dev):
                                       20))
         b6 = _cholsolve_bound(B, n, r, N, nb)
         b7 = _solve_with_factor_bound(B, n, r, nb)
-        for name, t, b in (("cholsolve_logdet", t6, b6),
-                           ("solve_with_factor", t7, b7)):
+        u6 = _usage("cholsolve", "cholsolve_kernel<32, 512>")
+        u7 = _usage("cholsolve", "solve_with_factor_kernel")
+        for name, t, b, u in (("cholsolve_logdet", t6, b6, u6),
+                              ("solve_with_factor", t7, b7, u7)):
             print(f"[{name}] ({B}, {n}, {r}): kernel {t['ms']:.3f} ms, plain "
                   f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms,"
-                  f" bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
-                  flush=True)
-        out["cholsolve_logdet"] = dict(max_abs_err=err6, **t6, **b6)
-        out["solve_with_factor"] = dict(max_abs_err=err7, **t7, **b7)
+                  f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+                  f"{_usage_text(u)}", flush=True)
+        out["cholsolve_logdet"] = dict(max_abs_err=err6, **t6, **b6, **u6)
+        out["solve_with_factor"] = dict(max_abs_err=err7, **t7, **b7, **u7)
     return out
 
 
@@ -767,6 +846,23 @@ def _adam_ms(gp, data, iters=10):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+# Outcomes of the same runs with the earlier kernels (the IPM with one
+# thread per problem, the blocked factor with two block-wide barriers per
+# pivot), on an NVIDIA H100 80GB HBM3 at 700 W, printed beside this run's:
+# the factor's bits are unchanged, so run (a) differs only by the IPM's
+# rounding.
+EARLIER_OUTCOMES = {
+    "main": "min clearance 0.1495, mean goal distance 0.5231, fraction "
+            "within 1.0 of goal 1.0000",
+    "config a": "min clearance 0.0482, mean goal distance 0.5489, fraction "
+                "within 1.0 of goal 0.9844",
+    "pendulum continuous": "certified 0.0439, feasible 0.9970, min final "
+                           "theta 1.633, no damage, no wedge entry",
+    "pendulum reference schedule": "certified 0.7310, feasible 0.9950, no "
+                                   "damage, no wedge entry",
+}
+
+
 def run_config(dev, x0s, card, label, **gp_options):
     """One rollout of the flagship batch with the MVGP options; launch
     counts, finiteness, moved hyperparameters and the outcome gate."""
@@ -808,6 +904,9 @@ def run_config(dev, x0s, card, label, **gp_options):
           f"{mean_gd:.4f}, fraction within 1.0 of goal {frac:.4f}, "
           f"feasible fraction {feas:.4f}, episodes whose lengthscale moved "
           f"{moved:.4f}", flush=True)
+    if label in EARLIER_OUTCOMES:
+        print(f"[{label}] with the earlier kernels: "
+              f"{EARLIER_OUTCOMES[label]}", flush=True)
     _require(moved > 0.9, f"{label}: the fit did not move the hyperparameters")
     _require(clear > 0 and mean_gd < 1.5 and frac > 0.7,
              f"{label}: batched-learning outcome gate failed")
@@ -903,6 +1002,8 @@ def run_pendulum(dev, x0s, card, label):
                  finite=finite, feasible=feas, certified=cert,
                  min_final_theta=th_end)
     print(f"{tag} outcomes {gates}", flush=True)
+    print(f"{tag} with the earlier kernels: "
+          f"{EARLIER_OUTCOMES[f'pendulum {label}']}", flush=True)
     _require(gates["mean_damage"] <= 0.01 and gates["frac_damaged"] <= 0.05
              and gates["frac_wedge_gt_2pct"] <= 0.05 and finite
              and feas >= 0.95, f"{tag}: outcome gate failed")
@@ -964,11 +1065,15 @@ def phase_pendulum_profile(dev, x0s, steps=20):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.device_time for e in dev_events) / 1e3 / steps
     ops = len(dev_events) / steps
+    ipm_ms = sum(e.device_time for e in dev_events
+                 if "ipm_kernel" in e.name) / 1e3 / steps
     print(f"[pendulum profile] B={x0s.shape[0]}, {steps} steps without a "
           f"refit: {wall_ms:.3f} ms per step, {ops:.1f} device operations "
-          f"and {dev_ms:.3f} ms of device time per step (device idle "
+          f"and {dev_ms:.3f} ms of device time per step, of which the IPM "
+          f"kernel {ipm_ms:.3f} ms (device idle "
           f"{100 * (1 - dev_ms / wall_ms):.1f}% of the unprofiled step)",
           flush=True)
+    _require(ipm_ms > 0, "the profile shows no IPM kernel on the device")
     lrn = sim.learned
     gen = torch.Generator(device=dev).manual_seed(6)
     state, X = lrn.init_state(x0s.shape[0], gen, dev, x0s.dtype), x0s
@@ -1007,7 +1112,8 @@ def phase_pendulum_profile(dev, x0s, steps=20):
               f"step (synchronized), {b['aten_ops_per_step']} ATen "
               f"operations", flush=True)
     return dict(ms_per_step=wall_ms, device_ops_per_step=ops,
-                device_ms_per_step=dev_ms, parts=breakdown)
+                device_ms_per_step=dev_ms, ipm_device_ms_per_step=ipm_ms,
+                parts=breakdown)
 
 
 def main():
@@ -1016,13 +1122,15 @@ def main():
     x0s = _x0s(dev)
     px0s = _pendulum_x0s(dev)
     chol = _check_chol_kernels(dev)
-    ipm = _check_ipm_kernel(dev, "(4, 4, 4)", [
+    cones = lambda B, seed, **kw: [
         torch.tensor(a, dtype=torch.float32, device=dev)
-        for a in _random_cones(256, 0)], list(_step0_cones(dev, x0s, 1)))
-    ipm_p = _check_ipm_kernel(dev, "(4, 3, 3)", [
-        torch.tensor(a, dtype=torch.float32, device=dev)
-        for a in _random_cones(256, 2, dims=(3, 3, 1))],
-        list(_pendulum_step0_cones(dev, px0s)))
+        for a in _random_cones(B, seed, **kw)]
+    ipm = _check_ipm_kernel(dev, "(4, 4, 4)", cones(256, 0),
+                            list(_step0_cones(dev, x0s, 1)), cones(1003, 4))
+    ipm_p = _check_ipm_kernel(dev, "(4, 3, 3)",
+                              cones(256, 2, dims=(3, 3, 1)),
+                              list(_pendulum_step0_cones(dev, px0s)),
+                              cones(1003, 6, dims=(3, 3, 1)))
     gram = _check_gram_kernel(dev)
     sweep = _check_sweep_kernel(dev)
     dinv = _check_chol_dinv_kernel(dev)

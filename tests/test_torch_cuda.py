@@ -191,6 +191,49 @@ def test_chol_dinv_kernel_matches_plain(cuda, n, nb):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nb", [8, 32, 64])
+@pytest.mark.parametrize("n", [1, 31, 50, 200, 260])
+def test_chol_dinv_block_sizes_and_plans(cuda, n, nb):
+    """One and two warps on the diagonal block (nb <= 32, nb = 64), tiles
+    cut by nb, the working matrix in shared memory (n <= 200) and in the
+    global scratch (n = 260); kernel 6 returns the same L and Dinv bit
+    for bit."""
+    S = torch.tensor(_spd(3, n, n + nb), dtype=torch.float32, device=cuda)
+    R = torch.ones((3, n, 2), dtype=torch.float32, device=cuda)
+    got, want = ck.chol_dinv(S, nb), ck.chol_dinv_plain(S, nb)
+    six = ck.cholsolve_logdet(S, R, nb)
+    torch.cuda.synchronize()
+    N = ck.padded_order(n, nb)
+    assert tuple(got[0].shape) == (3, N, N)
+    assert tuple(got[1].shape) == (3, N, nb)
+    for g, w in zip(got, want):
+        # well-conditioned SPD in f32: relative agreement 1e-4
+        assert _rel(g, w) < 1e-4
+    assert float(torch.triu(got[0], 1).abs().max()) == 0.0
+    assert torch.equal(six[1], got[0]) and torch.equal(six[2], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nb", [(50, 32), (200, 32), (260, 32), (100, 64)])
+def test_chol_dinv_passes_nan_through(cuda, n, nb):
+    """A NaN pivot is not floored: the episode's factor and block
+    inverses come back NaN, as the plain version marks a failed
+    factorization, and the other episodes are untouched."""
+    S = torch.tensor(_spd(3, n, n), dtype=torch.float32, device=cuda)
+    clean = ck.chol_dinv(S, nb)
+    S[1, 0, 0] = float("nan")
+    L, Dinv = ck.chol_dinv(S, nb)
+    Lp, _ = ck.chol_dinv_plain(S, nb)
+    torch.cuda.synchronize()
+    low = torch.tril(torch.ones_like(L[1])).bool()
+    assert bool(torch.isnan(L[1][low]).all() and torch.isnan(Dinv[1]).all())
+    assert bool(torch.isnan(Lp[1][low]).all())
+    for b in (0, 2):
+        assert torch.equal(L[b], clean[0][b])
+        assert torch.equal(Dinv[b], clean[1][b])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,K,n,mh", [(1, 1, 1, 1), (3, 33, 3, 3),
                                       (4, 200, 3, 3), (2, 70, 16, 16)])
 def test_gram_kernel_matches_plain(cuda, B, K, n, mh):
@@ -337,3 +380,98 @@ def test_ipm_kernel_pendulum_shape_matches_plain(cuda, B):
     assert bool(torch.isfinite(got[0]).all())
     assert float(got[1][:, 2, 1:].abs().max()) == 0.0
     assert float(got[2][:, 2, 1:].abs().max()) == 0.0
+
+
+def _in_cone(U, slack):
+    """Per problem: every cone block of U (B, C, d) in its second-order
+    cone, within `slack` of the block's scale (f32 roundoff of the head
+    against the tail's norm)."""
+    tail = torch.linalg.vector_norm(U[..., 1:], dim=-1)
+    return (U[..., 0] - tail >= -slack * (1.0 + U[..., 0].abs())).all(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(4, 4, 4, 1), (3, 3, 1)])
+@pytest.mark.parametrize("B", [1, 5, 33, 1000, 1003])
+def test_ipm_lane_per_cone_any_batch(cuda, B, dims):
+    """Batches that fill no block, one block and many (8 problems of 4
+    lanes per block), at both instantiations, cut from one set of 1003
+    random problems: contiguous finite outputs in the callers' layout,
+    bit for bit the rows of the whole set's solve, and the optimal values
+    of the plain version wherever both converge.  The large batches are
+    also held to the plain version's statistics: a few iterations as close
+    to an f64 run, the full solve's scores and converged count, S and Z in
+    their cones wherever both converged (the lanes of a problem took the
+    same branches)."""
+    whole = [torch.tensor(a, dtype=torch.float32, device=cuda)
+             for a in _mixed_cones(1003, len(dims), dims=dims)]
+    args = [a[:B].contiguous() for a in whole]
+    C, d = len(dims), max(dims)
+    got = ik.ipm(*args, 25, 1e-10)
+    want = ik.ipm_plain(*args, 25, 1e-10)
+    torch.cuda.synchronize()
+    assert [tuple(t.shape) for t in got] == [(B, 4), (B, C, d), (B, C, d)]
+    assert all(t.is_contiguous() and t.dtype == torch.float32
+               and bool(torch.isfinite(t).all()) for t in got)
+    for g, w in zip(got, ik.ipm(*whole, 25, 1e-10)):
+        assert torch.equal(g, w[:B])
+    sg = ik.score_padded(*args[:3], *got)
+    sw = ik.score_padded(*args[:3], *want)
+    both = (sg < 1e-3) & (sw < 1e-3)
+    cost = lambda x: (args[0] * x).sum(-1)
+    # f32 optimal values of two roundings of one algorithm: 1e-3 relative
+    assert bool(((cost(got[0]) - cost(want[0])).abs()
+                 <= 1e-3 * (1.0 + cost(want[0]).abs()))[both].all())
+    if B < 1000:
+        return
+    assert int(both.sum()) >= B // 2
+    assert float(sg.median()) <= 2.0 * float(sw.median()) + 1e-6
+    assert int((sg < 1e-3).sum()) >= int((sw < 1e-3).sum()) - B // 20
+    # an unsolvable random problem's f32 iterates leave the cones, in both
+    # versions; the converged ones stay inside
+    for g, w in zip(got[1:], want[1:]):
+        ok = _in_cone(w, 1e-5) & both
+        assert bool(_in_cone(g, 1e-5)[ok].all())
+    # three iterations from the cold start: f32 roundoff already separates
+    # the two chains on ill-conditioned problems, so each is held against
+    # the f64 run of the same iterations: over the problems, the kernel's
+    # median distance no more than twice the plain f32 version's
+    few = ik.ipm(*args, 3, 1e-10)
+    few_plain = ik.ipm_plain(*args, 3, 1e-10)
+    exact = ik.ipm_plain(*(a.double() for a in args), 3, 1e-10)
+    dist = lambda out: torch.stack([
+        ((o.double() - x).abs() / (1.0 + x.abs())).flatten(1).amax(-1)
+        for o, x in zip(out, exact)]).amax(0).median()
+    assert float(dist(few)) <= 2.0 * float(dist(few_plain)) + 1e-6
+
+
+@pytest.mark.cuda
+def test_ipm_problems_do_not_depend_on_their_neighbours(cuda):
+    """A problem's answer is the same bits whatever shares its warp: alone,
+    in a batch, and at another place in the batch."""
+    args = [torch.tensor(a, dtype=torch.float32, device=cuda)
+            for a in _mixed_cones(37, 11, dims=(3, 3, 1))]
+    full = ik.ipm(*args, 25, 1e-10)
+    perm = torch.randperm(37, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(cuda)
+    moved = ik.ipm(*(a[perm].contiguous() for a in args), 25, 1e-10)
+    for b in (0, 7, 36):
+        one = ik.ipm(*(a[b:b + 1].contiguous() for a in args), 25, 1e-10)
+        for f, o in zip(full, one):
+            assert torch.equal(f[b:b + 1], o)
+    for f, m in zip(full, moved):
+        assert torch.equal(f[perm], m)
+
+
+@pytest.mark.cuda
+def test_ipm_rejects_what_the_kernel_cannot_read(cuda):
+    args = [torch.tensor(a, dtype=torch.float32, device=cuda)
+            for a in _mixed_cones(4, 0)]
+    with pytest.raises(ValueError):
+        ik.ipm(args[0], args[1].transpose(-1, -2), *args[2:], 5, 1e-10)
+    with pytest.raises(ValueError):
+        ik.ipm(*(a.movedim(0, -1).contiguous().movedim(-1, 0) for a in args),
+               5, 1e-10)
+    with pytest.raises(ValueError):
+        ik.ipm(*(torch.tensor(a, dtype=torch.float32, device=cuda)
+                 for a in _mixed_cones(4, 0, nx=5)), 5, 1e-10)
