@@ -1,32 +1,51 @@
-// Batched Cholesky factor with explicit triangular inverse, for Hopper (sm_90a).
+// Batched Cholesky kernels of the fit and of the cache refresh, for Hopper
+// (sm_90a).  Two kernels, one per Pallas TPU kernel of
+// bayesian_cbf_tpu/ops/pallas_chol.py that they replace:
 //
-// Replaces two Pallas TPU kernels of the JAX package:
-//   * bayesian_cbf_tpu/ops/pallas_chol.py `_cholkinv_kernel`
-//     (batched_kinv_logdet_chol): K^{-1} = L^{-T} L^{-1} and logdet K,
-//     entry point `kinv_logdet_launch`;
-//   * bayesian_cbf_tpu/ops/pallas_chol.py `_chol_linv_kernel`
-//     (batched_chol_with_inv, assembly="kernel"): L and L^{-1},
-//     entry point `chol_linv_launch`.
+//   * `kinv_logdet_kernel` (entry point `kinv_logdet_launch`) replaces
+//     `_cholkinv_kernel` (batched_kinv_logdet_chol), the fit's inverse:
+//     K^{-1} = L^{-T} L^{-1} and logdet K = 2 sum_i log max(L_ii, 1e-20)
+//     of K (n x n) padded with an identity tail to N (a multiple of nb).
+//     It is the TPU kernel's algorithm (`_factor_assemble` + one product)
+//     on the device code of chol_blocked.cuh, one thread block per matrix:
+//       1. `factor<W, false>`: the blocked factor of csrc/chol_blocked.cu
+//          into the working matrix A (pivots floored at 1e-12, NaN passed
+//          on); the diagonal blocks' inverses Dinv go to a global scratch
+//          (they do not fit beside A in shared memory at N = 224), L is
+//          not written out;
+//       2. the logdet from A's diagonal, one fixed order of summation;
+//       3. `linv_rows`: L^{-1} in place over L by block rows,
+//          L^{-1}[r, :r] = -Dinv_r (L[r, :r] L^{-1}[:r, :r]): no second
+//          N x N matrix exists anywhere;
+//       4. `gram_of_rows`: the lower triangle of L^{-T} L^{-1}, written to
+//          both halves of the (n x n) output.
+//     Every product accumulates in f32 with FMA on register tiles (no
+//     TF32), as the TPU kernel's matmuls run at Precision.HIGHEST.
+//     What bounds it on the H100: one thread block per matrix and per SM
+//     (A takes 204 KB of shared memory at N = 224, which covers the main
+//     path's n = 200, and N = 64 for n = 50; larger N work in a global
+//     scratch that the caller allocates, one inlined copy of the body per
+//     home so that shared memory is addressed as such), so a batch of 256
+//     takes two waves; within a matrix the factor's serial pivot chain
+//     (see chol_blocked.cu), then stages 3 and 4, n^3/3 multiply-adds
+//     each, which at 7 block rows have fewer tiles than the block has
+//     warps in the early rows and pay two to four barriers per block row.
 //
-// Both share one core: one thread block per matrix, a right-looking
-// Cholesky one column at a time (the block synchronises per column), and
-// a Gauss-Jordan elimination that builds L^{-1} in the same column loop.
-// Semantics kept from the TPU kernel: the pivot is floored at 1e-12 before
-// its reciprocal square root (L[j][j] = d * rsqrt(max(d, 1e-12))), and the
-// log of each factor diagonal is floored at 1e-20.
-//
-// What bounds it on the H100: the serial column recurrence.  Each of the n
-// columns costs three block-wide barriers, and the trailing update of a
-// column is an O((n-j)^2) pass with little reuse.  The design keeps the
-// working matrix in shared memory whenever it fits (n <= 241 in f32, which
-// covers the main path's n = 50 and n = 200), so the trailing updates hit
-// shared memory rather than L2; larger n work in a global scratch buffer
-// that the caller allocates.  The inverse is accumulated in the output
-// buffer (or a caller-allocated scratch), which stays L2-resident at the
-// main-path sizes.  One block per matrix gives two waves at B = 256 on
-// 132 SMs; splitting a matrix across blocks is left for later work.
+//   * `chol_core_kernel` (entry point `chol_linv_launch`) replaces
+//     `_chol_linv_kernel` (batched_chol_with_inv, assembly="kernel"), the
+//     cache refresh's L and L^{-1}.  One thread block per matrix, a
+//     right-looking Cholesky one column at a time and a Gauss-Jordan
+//     elimination that builds L^{-1} in the same column loop, with the TPU
+//     kernel's pivot floor (L[j][j] = d * rsqrt(max(d, 1e-12))).  What
+//     bounds it: the serial column recurrence (three block-wide barriers
+//     per column, a trailing update with no register reuse, L^{-1}
+//     accumulated in global memory).  The working matrix is in shared
+//     memory up to n = 241, else in a global scratch.  It is to be rebuilt
+//     on `factor` + `linv_rows` like the kernel above.
 
 #include <cuda_runtime.h>
+
+#include "chol_blocked.cuh"
 
 namespace {
 
@@ -36,10 +55,8 @@ constexpr int kMaxSmemBytes = 232448;  // 227 KB opt-in limit per block
 __global__ void __launch_bounds__(kThreads)
 chol_core_kernel(const float* __restrict__ K, int n,
                  float* __restrict__ a_scratch,  // (B, n, n) or null (smem)
-                 float* __restrict__ X,          // (B, n, n) inverse accumulator
-                 float* __restrict__ L_out,      // (B, n, n) or null
-                 float* __restrict__ Kinv_out,   // (B, n, n) or null
-                 float* __restrict__ logdet_out) // (B,) or null
+                 float* __restrict__ X,          // (B, n, n): L^{-1}
+                 float* __restrict__ L_out)      // (B, n, n)
 {
     extern __shared__ float smem[];
     __shared__ float piv_s;
@@ -90,37 +107,15 @@ chol_core_kernel(const float* __restrict__ K, int n,
         __syncthreads();
     }
 
-    if (L_out) {
-        float* Lb = L_out + b * nn;
-        for (size_t t = tid; t < nn; t += nt) {
-            const int i = (int)(t / n), c = (int)(t % n);
-            Lb[t] = (c <= i) ? A[t] : 0.0f;
-        }
-    }
-    if (logdet_out && tid == 0) {
-        float acc = 0.0f;
-        for (int j = 0; j < n; ++j)
-            acc += 2.0f * logf(fmaxf(A[(size_t)j * n + j], 1e-20f));
-        logdet_out[b] = acc;
-    }
-    if (Kinv_out) {
-        // Kinv = X^T X with X lower triangular:
-        // Kinv[r][c] = sum_{i >= max(r, c)} X[i][r] X[i][c]
-        float* Kb_out = Kinv_out + b * nn;
-        for (size_t t = tid; t < nn; t += nt) {
-            const int r = (int)(t / n), c = (int)(t % n);
-            if (c > r) continue;
-            float acc = 0.0f;
-            for (int i = r; i < n; ++i)
-                acc += Xb[(size_t)i * n + r] * Xb[(size_t)i * n + c];
-            Kb_out[(size_t)r * n + c] = acc;
-            Kb_out[(size_t)c * n + r] = acc;
-        }
+    float* Lb = L_out + b * nn;
+    for (size_t t = tid; t < nn; t += nt) {
+        const int i = (int)(t / n), c = (int)(t % n);
+        Lb[t] = (c <= i) ? A[t] : 0.0f;
     }
 }
 
 int launch_core(const float* K, int B, int n, float* a_scratch, float* X,
-                float* L, float* Kinv, float* logdet, cudaStream_t stream) {
+                float* L, cudaStream_t stream) {
     const size_t smem = (size_t)n * n * sizeof(float);
     const bool use_smem = smem <= (size_t)kMaxSmemBytes;
     if (use_smem) {
@@ -130,7 +125,71 @@ int launch_core(const float* K, int B, int n, float* a_scratch, float* X,
         if (err != cudaSuccess) return (int)err;
     }
     chol_core_kernel<<<B, kThreads, use_smem ? smem : 0, stream>>>(
-        K, n, use_smem ? nullptr : a_scratch, X, L, Kinv, logdet);
+        K, n, use_smem ? nullptr : a_scratch, X, L);
+    return (int)cudaGetLastError();
+}
+
+// One matrix of the batch, by its thread block; A is the working matrix's
+// home.  W = chol_blocked::row_width(nb): 32 with 512 threads, 64 with 256.
+// The block's pointers into the batch are formed where each stage needs
+// them, not held in registers across the factor's diagonal blocks.
+template <int W>
+__device__ __forceinline__ void kinv_logdet_body(
+    const float* __restrict__ K, int n, int N, int nb, float* A, int ld,
+    float* small, float* dinv, float* __restrict__ Kinv,
+    float* __restrict__ logdet) {
+    const size_t b = blockIdx.x;
+    chol_blocked::factor<W, false>(K + b * n * n, n, N, nb, A, ld, small,
+                                   nullptr, dinv + b * N * nb);
+    if (threadIdx.x < 32) {
+        const float ld2 = chol_blocked::logdet_of_diag(A, ld, n);
+        if (threadIdx.x == 0) logdet[b] = ld2;
+    }
+    __syncthreads();  // the diagonal is read before L^{-1} overwrites it
+    chol_blocked::linv_rows(A, ld, dinv + b * N * nb, N, nb, small);
+    chol_blocked::gram_of_rows(A, ld, n, Kinv + b * n * n);
+}
+
+template <int W, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+kinv_logdet_kernel(const float* __restrict__ K, int n, int N, int nb,
+                   int use_smem,
+                   float* a_scratch,  // (B, N, N) or null (smem)
+                   float* dinv,       // (B, N, nb) scratch, written and read
+                   float* __restrict__ Kinv,    // (B, n, n)
+                   float* __restrict__ logdet)  // (B,)
+{
+    extern __shared__ __align__(16) float kinv_smem[];
+    // one inlined copy of the body per home of the working matrix, so that
+    // the copy in shared memory addresses it as shared memory
+    if (use_smem)
+        kinv_logdet_body<W>(
+            K, n, N, nb,
+            kinv_smem + chol_blocked::small_bytes(nb) / sizeof(float),
+            chol_blocked::stride(N), kinv_smem, dinv, Kinv, logdet);
+    else
+        kinv_logdet_body<W>(K, n, N, nb,
+                            a_scratch + (size_t)blockIdx.x * N * N, N,
+                            kinv_smem, dinv, Kinv, logdet);
+}
+
+__host__ inline size_t kinv_smem_bytes(int N, int nb) {
+    return chol_blocked::small_bytes(nb) + chol_blocked::matrix_bytes(N);
+}
+
+template <int W, int THREADS>
+int launch_kinv(const float* K, float* Kinv, float* logdet, float* dinv,
+                float* a_scratch, int B, int n, int N, int nb, int use_smem,
+                cudaStream_t stream) {
+    const size_t smem =
+        use_smem ? kinv_smem_bytes(N, nb) : chol_blocked::small_bytes(nb);
+    cudaError_t err = cudaFuncSetAttribute(
+        kinv_logdet_kernel<W, THREADS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kinv_logdet_kernel<W, THREADS><<<B, THREADS, smem, stream>>>(
+        K, n, N, nb, use_smem, use_smem ? nullptr : a_scratch, dinv, Kinv,
+        logdet);
     return (int)cudaGetLastError();
 }
 
@@ -148,17 +207,30 @@ int chol_uses_smem(int n) {
 // (L, L^{-1}) of a batch K (B, n, n), f32, contiguous.
 int chol_linv_launch(const float* K, float* L, float* Linv, float* a_scratch,
                      int B, int n, void* stream) {
-    return launch_core(K, B, n, a_scratch, Linv, L, nullptr, nullptr,
-                       (cudaStream_t)stream);
+    return launch_core(K, B, n, a_scratch, Linv, L, (cudaStream_t)stream);
 }
 
-// (K^{-1}, logdet K) of a batch K (B, n, n), f32, contiguous.  x_scratch
-// (B, n, n) holds L^{-1}.
+// Whether kinv_logdet_launch factors a padded order N at block nb in shared
+// memory (1) or needs the (B, N, N) global scratch `a_scratch` (0).
+int kinv_logdet_uses_smem(int N, int nb) {
+    return kinv_smem_bytes(N, nb) <= (size_t)kMaxSmemBytes ? 1 : 0;
+}
+
+// (K^{-1} (B, n, n), logdet K (B,)) of a batch K (B, n, n), f32,
+// contiguous; N = max(ceil(n / nb) nb, nb), nb a multiple of 4 up to 64.
+// dinv: a (B, N, nb) scratch.
 int kinv_logdet_launch(const float* K, float* Kinv, float* logdet,
-                       float* x_scratch, float* a_scratch, int B, int n,
-                       void* stream) {
-    return launch_core(K, B, n, a_scratch, x_scratch, nullptr, Kinv, logdet,
-                       (cudaStream_t)stream);
+                       float* dinv, float* a_scratch, int B, int n, int N,
+                       int nb, void* stream) {
+    if (nb < 4 || nb > chol_blocked::kMaxNb || nb % 4 != 0 || N % nb != 0 ||
+        N < n || n < 1)
+        return -1;
+    const int use_smem = kinv_logdet_uses_smem(N, nb);
+    if (nb <= 32)
+        return launch_kinv<32, 512>(K, Kinv, logdet, dinv, a_scratch, B, n, N,
+                                    nb, use_smem, (cudaStream_t)stream);
+    return launch_kinv<64, 256>(K, Kinv, logdet, dinv, a_scratch, B, n, N, nb,
+                                use_smem, (cudaStream_t)stream);
 }
 
 }  // extern "C"

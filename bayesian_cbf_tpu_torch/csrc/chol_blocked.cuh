@@ -1,6 +1,8 @@
 // Device-side blocked Cholesky with diagonal-block inverses, shared by
-// csrc/chol_blocked.cu (factor only) and csrc/cholsolve.cu (factor, solve
-// and logdet).
+// csrc/chol_blocked.cu (factor only), csrc/cholsolve.cu (factor, solve
+// and logdet) and csrc/chol.cu (factor, L^{-1} assembled in place over L,
+// K^{-1} = L^{-T} L^{-1} and logdet: `linv_rows`, `gram_of_rows`,
+// `logdet_of_diag` below).
 //
 // The arithmetic of the Pallas TPU kernels' block step `_factor_block`
 // (bayesian_cbf_tpu/ops/pallas_chol.py), one block column at a time:
@@ -367,6 +369,34 @@ __device__ __forceinline__ void trailing(float* A, int ld, int o, int nb,
     }
 }
 
+// L's block column at o (zero above the diagonal) and Dinv's block, copied
+// out of the working matrix and X, lanes along the row.
+__device__ __forceinline__ void store_column(const float* A, int ld, int o,
+                                             int nb, int N, const float* X,
+                                             int xs, float* __restrict__ Lb,
+                                             float* __restrict__ Db) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    for (int r0 = o + warp; r0 < N; r0 += 4 * nwarps) {
+        for (int c = lane; c < nb; c += 32) {
+            float v[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int r = r0 + u * nwarps;
+                v[u] = (r < N && !(r - o < nb && c > r - o))
+                           ? A[(size_t)r * ld + o + c] : 0.0f;
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int r = r0 + u * nwarps;
+                if (r < N) Lb[(size_t)r * N + o + c] = v[u];
+                if (r - o < nb)
+                    Db[(size_t)r * nb + c] = X[(r - o) * xs + c];
+            }
+        }
+    }
+}
+
 // Factor one matrix with the whole thread block (blockDim.x a multiple of
 // 32; W = row_width(nb)).  Kb: the input (n x n); A: the working
 // matrix (N x N, row stride ld), in shared memory or a global scratch;
@@ -376,8 +406,11 @@ __device__ __forceinline__ void trailing(float* A, int ld, int o, int nb,
 // Inlined into each caller, once per home of A: a call whose A is derived
 // from the kernel's shared array addresses it as shared memory, which the
 // tiles' loads need (through a pointer that may be either, panel and
-// trailing update took a third longer).
-template <int W>
+// trailing update took a third longer).  STORE_L = false is for a caller
+// that goes on working in A and returns no L: Lb is not written (pass
+// null), and A's blocks above the diagonal blocks are zeroed instead, so
+// that A is a whole N x N matrix whose lower block triangle holds L.
+template <int W, bool STORE_L = true>
 __device__ __forceinline__ void factor(const float* __restrict__ Kb, int n,
                                        int N, int nb, float* A, int ld,
                                        float* small, float* __restrict__ Lb,
@@ -414,14 +447,14 @@ __device__ __forceinline__ void factor(const float* __restrict__ Kb, int n,
                 if (r >= N) continue;
                 const int end = (r / nb + 1) * nb;
                 float* Ar = A + (size_t)r * ld;
-                float* Lr = Lb + (size_t)r * N;
+                float* Zr = STORE_L ? Lb + (size_t)r * N : Ar;
 #pragma unroll
                 for (int u = 0; u < 8; ++u) {
                     const int c = c0 + 32 * u;
                     if (c < end)
                         Ar[c] = v[q][u];
                     else if (c < N)
-                        Lr[c] = 0.0f;
+                        Zr[c] = 0.0f;
                 }
             }
         }
@@ -442,24 +475,12 @@ __device__ __forceinline__ void factor(const float* __restrict__ Kb, int n,
                 panel<false>(A, ld, o, nb, N, X, xs);
         }
 
-        // ---- L's block column and Dinv's block, lanes along the row
-        for (int r0 = o + warp; r0 < N; r0 += 4 * nwarps) {
-            for (int c = lane; c < nb; c += 32) {
-                float v[4];
-#pragma unroll
-                for (int u = 0; u < 4; ++u) {
-                    const int r = r0 + u * nwarps;
-                    v[u] = (r < N && !(r - o < nb && c > r - o))
-                               ? A[(size_t)r * ld + o + c] : 0.0f;
-                }
-#pragma unroll
-                for (int u = 0; u < 4; ++u) {
-                    const int r = r0 + u * nwarps;
-                    if (r < N) Lb[(size_t)r * N + o + c] = v[u];
-                    if (r - o < nb)
-                        Db[(size_t)r * nb + c] = X[(r - o) * xs + c];
-                }
-            }
+        // ---- L's block column and Dinv's block
+        if constexpr (STORE_L) {
+            store_column(A, ld, o, nb, N, X, xs, Lb, Db);
+        } else {
+            for (int t = tid; t < nb * nb; t += nt)
+                Db[(size_t)o * nb + t] = X[(t / nb) * xs + t % nb];
         }
 
         // ---- trailing update W -= Lp Lp^T on the lower block triangle
@@ -470,6 +491,220 @@ __device__ __forceinline__ void factor(const float* __restrict__ Kb, int n,
                 trailing<false>(A, ld, o, nb, N);
         }
         __syncthreads();
+    }
+}
+
+// logdet K = 2 sum_{i < n} log max(L_ii, 1e-20) from the diagonal of the
+// factored A, by the block's first warp (all 32 lanes call; lane 0 holds
+// the result).  A NaN diagonal is passed on, and the sum has one fixed
+// order: lane l adds rows l, l + 32, ..., then a shuffle tree.
+__device__ __forceinline__ float logdet_of_diag(const float* A, int ld,
+                                                int n) {
+    float acc = 0.0f;
+    for (int i = threadIdx.x; i < n; i += 32) {
+        const float d = A[(size_t)i * ld + i];
+        acc += logf(isnan(d) ? d : fmaxf(d, 1e-20f));
+    }
+    for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_down_sync(0xffffffffu, acc, off);
+    return 2.0f * acc;
+}
+
+// row[j] += s * b.j
+__device__ __forceinline__ void axpy4(float s, const float4& b,
+                                      float (&row)[4]) {
+    row[0] = fmaf(s, b.x, row[0]);
+    row[1] = fmaf(s, b.y, row[1]);
+    row[2] = fmaf(s, b.z, row[2]);
+    row[3] = fmaf(s, b.w, row[3]);
+}
+
+// An 8 x 32 tile of a product P Q by one warp, on 2 x 4 register tiles:
+// lane (ti, tj) = (lane / 8, lane % 8) owns rows 2 ti + {0, 1} and columns
+// 4 tj .. 4 tj + 3.  p0, p1: the lane's two rows of P; q: Q's row 0 at the
+// lane's first column, row stride ldq.  acc[i][j] += sum over k0 <= k < k1
+// of P[i][k] Q[k][j], k ascending; k0, k1, ldq multiples of 4 and every
+// pointer 16-byte aligned.  A k-step of 4 is 6 float4 loads for 32 FMAs:
+// the loads of P are shared by the 8 lanes of a ti, those of Q run along
+// one row.
+__device__ __forceinline__ void product_tile(const float* p0, const float* p1,
+                                             const float* q, int ldq, int k0,
+                                             int k1, float (&acc)[2][4]) {
+#pragma unroll 2
+    for (int k = k0; k < k1; k += 4) {
+        const float4 a0 = *reinterpret_cast<const float4*>(p0 + k);
+        const float4 a1 = *reinterpret_cast<const float4*>(p1 + k);
+        float4 b[4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+            b[kk] = *reinterpret_cast<const float4*>(
+                q + (size_t)(k + kk) * ldq);
+        axpy4(a0.x, b[0], acc[0]);
+        axpy4(a0.y, b[1], acc[0]);
+        axpy4(a0.z, b[2], acc[0]);
+        axpy4(a0.w, b[3], acc[0]);
+        axpy4(a1.x, b[0], acc[1]);
+        axpy4(a1.y, b[1], acc[1]);
+        axpy4(a1.z, b[2], acc[1]);
+        axpy4(a1.w, b[3], acc[1]);
+    }
+}
+
+// L^{-1} in place over L, by block rows (the "row" assembly of the TPU
+// kernels' `_factor_assemble`), with the whole thread block.  On entry A
+// (N x N, row stride ld) holds L in its lower block triangle and zeros
+// above the diagonal blocks, as factor<W, false> leaves it, and D (N x nb)
+// the diagonal blocks' inverses; on return A's lower triangle holds L^{-1}
+// (zero above the diagonal inside the diagonal blocks too) and every write
+// is visible to the block.  buf: nb x nb floats of shared memory, 16-byte
+// aligned (the factor's `small` is large enough).  nb and ld multiples of
+// 4, A 16-byte aligned.
+//
+// Block row r of L is read by step r only, and the rows above it already
+// hold L^{-1}, so no second matrix exists:
+//   T = L[r, :r] L^{-1}[:r, :r]    over L[r, :r]   (phase A)
+//   L^{-1}[r, :r] = -Dinv_r T      over T          (phase B)
+//   L^{-1}[r, r]  = Dinv_r.
+// Both phases are products on `product_tile`s held in registers across one
+// block-wide barrier, then stored.  When a phase has more tiles than the
+// block has warps, it takes them in an order in which a pass overwrites
+// nothing that a later pass reads: phase A by ascending columns (a tile at
+// columns c.. reads L[r, k] for k >= c only, L^{-1} being lower
+// triangular), phase B by descending rows (Dinv_r is lower triangular, so
+// a tile reads the rows of T at and above its own).  D is not read through
+// the read-only path: the factor wrote it in the same launch.
+__device__ __forceinline__ void linv_rows(float* A, int ld, const float* D,
+                                          int N, int nb, float* buf) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+    const int ti = lane >> 3, tj = lane & 7;
+    const int nrt = (nb + 7) >> 3;
+    for (int t = tid; t < nb * nb; t += nt)
+        A[(size_t)(t / nb) * ld + t % nb] = D[t];
+    __syncthreads();
+    for (int R0 = nb; R0 < N; R0 += nb) {
+        for (int t = tid; t < nb * nb; t += nt)
+            buf[t] = D[(size_t)R0 * nb + t];
+        const int nct = (R0 + 31) >> 5;
+        const int ntile = nrt * nct;
+        float* Ar = A + (size_t)R0 * ld;
+        // ---- phase A: T = L[r, :r] Linv[:r, :r]
+        for (int w0 = 0; w0 < ntile; w0 += nwarps) {
+            const int idx = w0 + warp;
+            const int ct = idx / nrt, rt = idx - ct * nrt;
+            const int i0 = 8 * rt + 2 * ti, j0 = 32 * ct + 4 * tj;
+            const bool own = idx < ntile && i0 < nb && j0 < R0;
+            float acc[2][4] = {};
+            if (idx < ntile) {
+                const int ic = min(i0, nb - 2), jc = min(j0, R0 - 4);
+                product_tile(Ar + (size_t)ic * ld, Ar + (size_t)(ic + 1) * ld,
+                             A + jc, ld, 32 * ct, R0, acc);
+            }
+            __syncthreads();
+            if (own) {
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+                    *reinterpret_cast<float4*>(Ar + (size_t)(i0 + i) * ld + j0)
+                        = make_float4(acc[i][0], acc[i][1], acc[i][2],
+                                      acc[i][3]);
+            }
+        }
+        __syncthreads();
+        // ---- phase B: Linv[r, :r] = -Dinv_r T
+        for (int w0 = 0; w0 < ntile; w0 += nwarps) {
+            const int idx = w0 + warp;
+            const int rt = nrt - 1 - idx / nct, ct = idx % nct;
+            const int i0 = 8 * rt + 2 * ti, j0 = 32 * ct + 4 * tj;
+            const bool own = idx < ntile && i0 < nb && j0 < R0;
+            float acc[2][4] = {};
+            if (idx < ntile) {
+                const int ic = min(i0, nb - 2), jc = min(j0, R0 - 4);
+                product_tile(buf + ic * nb, buf + (ic + 1) * nb, Ar + jc, ld,
+                             0, min(nb, 8 * rt + 8), acc);
+            }
+            __syncthreads();
+            if (own) {
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+                    *reinterpret_cast<float4*>(Ar + (size_t)(i0 + i) * ld + j0)
+                        = make_float4(-acc[i][0], -acc[i][1], -acc[i][2],
+                                      -acc[i][3]);
+            }
+        }
+        for (int t = tid; t < nb * nb; t += nt)
+            Ar[(size_t)(t / nb) * ld + R0 + t % nb] = buf[t];
+        __syncthreads();
+    }
+}
+
+// Kout (n x n, row stride n) = M^T M for the lower-triangular M in the
+// leading n rows and columns of A (row stride ld, a multiple of 4; A
+// 16-byte aligned; A has at least max(n, 4) rounded up to 4 columns):
+// entry (i, j) sums M[k][i] M[k][j] over k >= max(i, j), k ascending.
+// With M = L^{-1} this is K^{-1}; the rows below n of an identity-padded
+// L^{-1} are zero in the first n columns and are skipped.
+//
+// The lower triangle is computed once and stored to both halves.  A warp
+// takes 16 rows x 32 columns of it on 4 x 4 register tiles (lane (ti, tj)
+// owns rows 4 ti .. and columns 4 tj ..): both operands of a k-step lie
+// along row k of A, one float4 each for 16 FMAs.  The k-range of a tile
+// starts at its first row, so the tiles are dealt to the warps in
+// descending length, back and forth.  Nothing here synchronises: the
+// caller makes A visible to the block first.
+__device__ __forceinline__ void gram_of_rows(const float* A, int ld, int n,
+                                             float* __restrict__ Kout) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    const int ti = lane >> 3, tj = lane & 7;
+    // row tile rt (16 rows) meets the lower triangle in (rt >> 1) + 1
+    // column tiles (32 columns)
+    const int nrt = (n + 15) >> 4, half = nrt >> 1;
+    const int total = (nrt & 1) ? (half + 1) * (half + 1) : half * (half + 1);
+    const int last = 4 * ((max(n, 4) + 3) / 4) - 4;
+    const bool vec = (n & 3) == 0;
+    for (int w0 = 0, pass = 0; w0 < total; w0 += nwarps, ++pass) {
+        const int idx = w0 + ((pass & 1) ? nwarps - 1 - warp : warp);
+        if (idx >= total) continue;
+        int rt = 0, base = 0;
+        while (idx >= base + (rt >> 1) + 1) base += (rt >> 1) + 1, ++rt;
+        const int ct = idx - base;
+        const int i0 = 16 * rt + 4 * ti, j0 = 32 * ct + 4 * tj;
+        const float* ai = A + min(i0, last);
+        const float* aj = A + min(j0, last);
+        float acc[4][4] = {};
+#pragma unroll 4
+        for (int k = 16 * rt; k < n; ++k) {
+            const float4 a =
+                *reinterpret_cast<const float4*>(ai + (size_t)k * ld);
+            const float4 b =
+                *reinterpret_cast<const float4*>(aj + (size_t)k * ld);
+            axpy4(a.x, b, acc[0]);
+            axpy4(a.y, b, acc[1]);
+            axpy4(a.z, b, acc[2]);
+            axpy4(a.w, b, acc[3]);
+        }
+        if (vec && i0 + 3 < n && j0 + 3 < i0) {
+            // the lane's 4 x 4 lies below the diagonal
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                *reinterpret_cast<float4*>(Kout + (size_t)(i0 + i) * n + j0) =
+                    make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                *reinterpret_cast<float4*>(Kout + (size_t)(j0 + j) * n + i0) =
+                    make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+            continue;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int r = i0 + i, c = j0 + j;
+                if (r < n && c <= r) {
+                    Kout[(size_t)r * n + c] = acc[i][j];
+                    if (c < r) Kout[(size_t)c * n + r] = acc[i][j];
+                }
+            }
     }
 }
 

@@ -164,15 +164,8 @@ cholsolve_kernel(const float* __restrict__ K, const float* __restrict__ RHS,
                                 a_scratch + (size_t)b * N * N, ld, small, Lb,
                                 Db);
     if (threadIdx.x < 32) {
-        float acc = 0.0f;
-        for (int i = threadIdx.x; i < N; i += 32)
-        {
-            const float d = A[(size_t)i * ld + i];
-            acc += logf(isnan(d) ? d : fmaxf(d, 1e-20f));
-        }
-        for (int off = 16; off > 0; off >>= 1)
-            acc += __shfl_down_sync(0xffffffffu, acc, off);
-        if (threadIdx.x == 0) logdet[b] = 2.0f * acc;
+        const float ld2 = chol_blocked::logdet_of_diag(A, ld, N);
+        if (threadIdx.x == 0) logdet[b] = ld2;
     }
     sweeps(A, ld, Db, N, nb, r, X, T);
     store_sol(X, n, r, sol + (size_t)b * n * r);

@@ -112,6 +112,9 @@ class ZeroDynamics(NamedTuple):
         return x.new_zeros((x.shape[0], self.state_size, 1 + self.ctrl_size,
                             self.state_size))
 
+    def step(self, x, u, dt):
+        return x, torch.zeros_like(x)
+
 
 class PendulumDynamics(NamedTuple):
     """Inverted pendulum, x = (theta, omega): f = [omega, -(g/l) sin theta],
@@ -131,6 +134,9 @@ class PendulumDynamics(NamedTuple):
         g = x.new_zeros((x.shape[0], 2, 1))
         g[:, 1, 0] = 1.0 / (self.mass * self.length)
         return g
+
+    def F_func(self, x):
+        return torch.cat([self.f_func(x)[..., None], self.g_func(x)], -1)
 
     def step(self, x, u, dt):
         xdot = self.f_func(x) + (self.g_func(x) @ u[..., None])[..., 0]
@@ -215,7 +221,8 @@ class LearnedShiftInvariantDynamics(NamedTuple):
         md = self.mean_dynamics
         if not self.enable_learning:
             batch = x.shape[0]
-            A = torch.diag(torch.tensor(md.kernel_diag_A, dtype=x.dtype,
+            diag_A = getattr(md, "kernel_diag_A", (1.0,) * self.gp.x_dim)
+            A = torch.diag(torch.tensor(diag_A, dtype=x.dtype,
                                         device=x.device))
             Bk = torch.eye(1 + self.gp.u_dim, dtype=x.dtype, device=x.device)
             return (md.F_func(x), Bk.expand(batch, -1, -1),

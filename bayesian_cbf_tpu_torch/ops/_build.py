@@ -130,7 +130,8 @@ _SIGNATURES = {
     "chol": {
         "chol_uses_smem": [_INT],
         "chol_linv_launch": [_VP, _VP, _VP, _VP, _INT, _INT, _VP],
-        "kinv_logdet_launch": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
+        "kinv_logdet_uses_smem": [_INT, _INT],
+        "kinv_logdet_launch": [_VP] * 5 + [_INT] * 4 + [_VP],
     },
     "ipm": {
         "ipm_supported": [_INT, _INT, _INT],

@@ -16,6 +16,19 @@ import torch
 from . import _build
 
 MAX_N = 1024
+NB_BLK = 32   # block size of the blocked factor (`chol_dinv` and the solves)
+# Block size of the fit inverse `kinv_logdet`, the JAX package's own
+# (`cholinv.CHOLK_NB`).  The factor multiplies each panel by the explicit
+# inverse of an nb x nb diagonal block, so a larger block is a less
+# accurate inverse: on an H100, on trajectory Grams at (256, 200) with the
+# fit's conditioning (7.7e5), 16 is within 4.7e-3 of the f64 inverse
+# (relative to its largest entry) in 0.323 ms, 32 within 1.0e-2 in
+# 0.281 ms, 8 within 2.1e-3 in 0.70 ms (`chip_smoke.py` prints them).  A
+# larger block also turns non-finite at a lower condition number, where
+# the plain version still returns a finite (and useless) inverse: 16 from
+# between 1.0e7 and 2.0e7, 32 from 6.5e6 (`probe_kinv_logdet.py`).
+KINV_NB = 16
+MAX_NB = 64
 
 
 def _cholesky_nan(K: torch.Tensor):
@@ -62,6 +75,22 @@ def check_batch(K: torch.Tensor, what: str):
     return B, n
 
 
+def padded_order(n: int, nb: int) -> int:
+    """n rounded up to a multiple of nb, at least nb: the order of the
+    identity-padded matrix of the JAX package's blocked kernels."""
+    return max(-(-n // nb) * nb, nb)
+
+
+def _check_nb(nb: int, what: str):
+    if not 1 <= nb <= MAX_NB:
+        raise ValueError(f"{what}: need 1 <= nb <= {MAX_NB}, got {nb}")
+
+
+def _scratch(need: bool, shape, like: torch.Tensor):
+    return torch.empty(shape, dtype=like.dtype, device=like.device) \
+        if need else None
+
+
 def _a_scratch(lib, K, B, n):
     if lib.chol_uses_smem(n):
         return torch.empty(0, device=K.device), None
@@ -91,23 +120,29 @@ def chol_linv(K: torch.Tensor):
 chol_linv.launches = 0
 
 
-def kinv_logdet(K: torch.Tensor):
+def kinv_logdet(K: torch.Tensor, nb: int = KINV_NB):
     """(K^{-1}, logdet K) of a batch K (B, n, n).  Replaces the TPU kernel
-    `pallas_chol._cholkinv_kernel` on CUDA."""
+    `pallas_chol._cholkinv_kernel` on CUDA: the blocked factor of the
+    identity-padded K at block size nb (a multiple of 4), L^{-1} assembled
+    in place over L by block rows, and L^{-T} L^{-1}, in one launch."""
     if K.device.type == "cpu":
         return kinv_logdet_plain(K)
     B, n = check_batch(K, "kinv_logdet")
+    _check_nb(nb, "kinv_logdet")
+    if nb % 4:
+        raise ValueError(f"kinv_logdet: nb must be a multiple of 4, got {nb}")
+    N = padded_order(n, nb)
     lib = _build.load("chol")
     Kinv = torch.empty_like(K)
     logdet = torch.empty((B,), dtype=K.dtype, device=K.device)
-    X = torch.empty_like(K)
-    keep, a_ptr = _a_scratch(lib, K, B, n)
+    dinv = torch.empty((B, N, nb), dtype=K.dtype, device=K.device)
+    a = _scratch(not lib.kinv_logdet_uses_smem(N, nb), (B, N, N), K)
     rc = lib.kinv_logdet_launch(
-        K.data_ptr(), Kinv.data_ptr(), logdet.data_ptr(), X.data_ptr(),
-        a_ptr, B, n, torch.cuda.current_stream(K.device).cuda_stream)
+        K.data_ptr(), Kinv.data_ptr(), logdet.data_ptr(), dinv.data_ptr(),
+        None if a is None else a.data_ptr(), B, n, N, nb,
+        torch.cuda.current_stream(K.device).cuda_stream)
     _build.check(rc, "kinv_logdet_launch")
     kinv_logdet.launches += 1
-    del keep
     return Kinv, logdet
 
 
@@ -115,21 +150,6 @@ kinv_logdet.launches = 0
 
 
 # ---- blocked factor with diagonal-block inverses (csrc/chol_blocked.cu) ----
-
-NB_BLK = 32
-MAX_NB = 64
-
-
-def padded_order(n: int, nb: int) -> int:
-    """n rounded up to a multiple of nb, at least nb: the order of the
-    identity-padded matrix of the JAX package's blocked kernels."""
-    return max(-(-n // nb) * nb, nb)
-
-
-def _check_nb(nb: int, what: str):
-    if not 1 <= nb <= MAX_NB:
-        raise ValueError(f"{what}: need 1 <= nb <= {MAX_NB}, got {nb}")
-
 
 def chol_dinv_plain(K: torch.Tensor, nb: int = NB_BLK):
     """(L (B, N, N), Dinv (B, N, nb)) by `cholesky_ex` of the identity-
@@ -212,6 +232,20 @@ def assemble_linv(L: torch.Tensor, Dinv: torch.Tensor, nb: int,
     return torch.cat([torch.cat([blocks[r][j] if j <= r else zero
                                  for j in range(nblocks)], 2)
                       for r in range(nblocks)], 1)
+
+
+def kinv_logdet_blocked_plain(K: torch.Tensor, nb: int = KINV_NB):
+    """(K^{-1}, logdet K) by the steps of the `kinv_logdet` kernel: the
+    blocked factor of the identity-padded K with its diagonal-block
+    inverses, the "row" assembly of L^{-1}, L^{-T} L^{-1} cut to (n, n),
+    and the logdet over the rows below n."""
+    n = K.shape[-1]
+    L, Dinv = chol_dinv_plain(K, nb)
+    Linv = assemble_linv(L, Dinv, nb, "row")
+    Kinv = (Linv.transpose(-1, -2) @ Linv)[:, :n, :n]
+    diag = torch.diagonal(L, dim1=-2, dim2=-1)[:, :n]
+    logdet = 2.0 * torch.sum(torch.log(torch.clamp(diag, min=1e-20)), -1)
+    return Kinv, logdet
 
 
 def chol_linv_assembled(K: torch.Tensor, assembly: str, nb: int = NB_BLK):
@@ -298,11 +332,6 @@ def _check_rhs(RHS: torch.Tensor, B: int, n_max: int, like: torch.Tensor,
     if not 1 <= r <= MAX_R:
         raise ValueError(f"{what}: need 1 <= r <= {MAX_R}, got r={r}")
     return r
-
-
-def _scratch(need: bool, shape, like: torch.Tensor):
-    return torch.empty(shape, dtype=like.dtype, device=like.device) \
-        if need else None
 
 
 def cholsolve_logdet(K: torch.Tensor, RHS: torch.Tensor, nb: int = NB_BLK):

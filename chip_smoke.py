@@ -17,8 +17,11 @@ Phases (each raises on failure; nothing is caught):
                  runs at both instantiations: (4, 4, 4) on the unicycle's
                  cones and (4, 3, 3) on the pendulum's, each also on 1003
                  random cones (no whole number of blocks).  The blocked
-                 factor's two kernels and the IPM print their registers,
-                 stack and spill bytes beside their times.
+                 factor's kernels (the fit inverse among them) and the IPM
+                 print their registers, stack and spill bytes beside their
+                 times; the fit inverse also its time at other block
+                 sizes and beside the routes that compute the same
+                 through several launches.
   4. main     -- the batched unicycle learn-and-control loop (B=256
                  episodes, K=200, 2000 steps, bench.py's configuration),
                  with launch counts and the batched-learning outcome gate.
@@ -219,6 +222,10 @@ def _check_chol_kernels(dev):
                          f"kinv_logdet {name} n={n} resid {resid}")
                 _require(n == 1024 or lderr < 0.5,
                          f"kinv_logdet {name} n={n} logdet err {lderr}")
+        print(f"[kinv_logdet] ({B}, {n}): kernel "
+              f"{_cuda_ms(lambda: ck.kinv_logdet(K), 5):.3f} ms, plain "
+              f"{_cuda_ms(lambda: ck.kinv_logdet_plain(K), 5):.3f} ms",
+              flush=True)
         for name, fn in (("kernel", ck.chol_linv),
                          ("plain", ck.chol_linv_plain)):
             L, Linv = fn(K)
@@ -263,7 +270,58 @@ def _check_chol_kernels(dev):
               f"ms ({bound['bound_by']})", flush=True)
         out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         library_ms=library_ms, **bound)
+    out["kinv_logdet"].update(_kinv_logdet_design(dev, S, K))
     return out
+
+
+# kernel 1 at (256, 200) before it was rebuilt on the blocked factor (one
+# column at a time, three block-wide barriers each), NVIDIA H100 80GB HBM3
+# at 700 W
+KINV_LOGDET_EARLIER_MS = 4.315
+
+
+def _kinv_logdet_design(dev, S, K):
+    """What the fit inverse's design rests on, at (256, 200): agreement
+    with the plain version of its own steps on the SPD batch S; on the
+    trajectory Grams K its time at each block size and the times of the
+    routes that compute the same function through several launches
+    (kernel 8 + the "row" assembly in matmuls, and the "chol" fit inverse
+    on top of it); registers and spills."""
+    from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
+    from bayesian_cbf_tpu_torch.ops import cholinv
+    got, want = ck.kinv_logdet(S), ck.kinv_logdet_blocked_plain(S)
+    rel = max(float((g - w).abs().max() / w.abs().max())
+              for g, w in zip(got, want))
+    print(f"[kinv_logdet] SPD (256, 200): relative error vs the plain "
+          f"version of its own steps {rel:.3e}", flush=True)
+    _require(rel < 1e-4, f"kinv_logdet disagrees with its steps: {rel}")
+    by_nb = {nb: _cuda_ms(lambda: ck.kinv_logdet(K, nb), 20)
+             for nb in (8, 16, 32, 64)}
+    # each block size is another rounding: its distance from the f64
+    # inverse on the trajectory Grams, beside the plain version's
+    exact = torch.linalg.inv(K.double())
+    far = lambda Kinv: float(((Kinv.double() - exact).abs().amax((-1, -2))
+                              / exact.abs().amax((-1, -2))).max())
+    err_by_nb = {nb: far(ck.kinv_logdet(K, nb)[0]) for nb in by_nb}
+    err_plain = far(ck.kinv_logdet_plain(K)[0])
+    routes = dict(
+        chol_dinv_ms=_cuda_ms(lambda: ck.chol_dinv(K), 20),
+        chol_linv_assembled_row_ms=_cuda_ms(
+            lambda: ck.chol_linv_assembled(K, "row"), 20),
+        fit_chol_row_ms=_cuda_ms(
+            lambda: cholinv.batched_kinv_logdet_fit(K, "chol", "row"), 20),
+        blocked_plain_ms=_cuda_ms(
+            lambda: ck.kinv_logdet_blocked_plain(K), 20))
+    usage = _usage("chol", "kinv_logdet_kernel<32, 512>")
+    print(f"[kinv_logdet] (256, 200): ms by block size "
+          f"{ {nb: round(t, 4) for nb, t in by_nb.items()} } (the wrapper's: "
+          f"{ck.KINV_NB}); max relative distance from the f64 inverse by "
+          f"block size { {nb: f'{e:.3e}' for nb, e in err_by_nb.items()} }, "
+          f"plain {err_plain:.3e}; other routes {routes}; before "
+          f"the rebuild {KINV_LOGDET_EARLIER_MS} ms; {_usage_text(usage)}",
+          flush=True)
+    return dict(ms_by_nb=by_nb, rel_err_vs_f64_by_nb=err_by_nb, **routes,
+                **usage)
 
 
 def _random_cones(B, seed, nx=4, dims=(4, 4, 4, 1)):
@@ -846,19 +904,23 @@ def _adam_ms(gp, data, iters=10):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-# Outcomes of the same runs with the earlier kernels (the IPM with one
-# thread per problem, the blocked factor with two block-wide barriers per
-# pivot), on an NVIDIA H100 80GB HBM3 at 700 W, printed beside this run's:
-# the factor's bits are unchanged, so run (a) differs only by the IPM's
-# rounding.
+# Outcomes of the same runs before the fit inverse (kernel 1) was rebuilt on
+# the blocked factor, on an NVIDIA H100 80GB HBM3 at 700 W, printed beside
+# this run's: kernel 1 now rounds as the blocked factor does, so every run
+# that fits through it moves within the reference's roundoff sensitivity;
+# runs (a) and (b) do not launch it.
 EARLIER_OUTCOMES = {
-    "main": "min clearance 0.1495, mean goal distance 0.5231, fraction "
+    "main": "min clearance 0.1449, mean goal distance 0.5232, fraction "
             "within 1.0 of goal 1.0000",
-    "config a": "min clearance 0.0482, mean goal distance 0.5489, fraction "
-                "within 1.0 of goal 0.9844",
-    "pendulum continuous": "certified 0.0439, feasible 0.9970, min final "
-                           "theta 1.633, no damage, no wedge entry",
-    "pendulum reference schedule": "certified 0.7310, feasible 0.9950, no "
+    "config a": "min clearance 0.1013, mean goal distance 0.5340, fraction "
+                "within 1.0 of goal 0.9922",
+    "config b": "as main then: min clearance 0.1449, mean goal distance "
+                "0.5232, fraction within 1.0 of goal 1.0000",
+    "config c": "min clearance 0.1476, mean goal distance 0.5255, fraction "
+                "within 1.0 of goal 1.0000, feasible fraction 0.9992",
+    "pendulum continuous": "certified 0.0412, feasible 0.9971, min final "
+                           "theta 1.6326, no damage, no wedge entry",
+    "pendulum reference schedule": "certified 0.7296, feasible 0.9952, no "
                                    "damage, no wedge entry",
 }
 
@@ -905,7 +967,7 @@ def run_config(dev, x0s, card, label, **gp_options):
           f"feasible fraction {feas:.4f}, episodes whose lengthscale moved "
           f"{moved:.4f}", flush=True)
     if label in EARLIER_OUTCOMES:
-        print(f"[{label}] with the earlier kernels: "
+        print(f"[{label}] before kernel 1 was rebuilt: "
               f"{EARLIER_OUTCOMES[label]}", flush=True)
     _require(moved > 0.9, f"{label}: the fit did not move the hyperparameters")
     _require(clear > 0 and mean_gd < 1.5 and frac > 0.7,
@@ -913,11 +975,33 @@ def run_config(dev, x0s, card, label, **gp_options):
     return launches, out
 
 
+def _adam_device_ms(gp, data, iters=5):
+    """Device operations (kernels and copies) and ms of device time per
+    Adam iteration of `gp.fit` on `data`, and the fit inverse kernel's part
+    of that time, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=data.X.device).manual_seed(2)
+    params = gp.init_params(data.X.shape[0], gen, data.X.device,
+                            data.X.dtype)
+    gp.fit(params, data, training_iter=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        gp.fit(params, data, training_iter=iters)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    inverse = sum(e.device_time for e in events
+                  if "kinv_logdet_kernel" in e.name)
+    return (len(events) / iters, sum(e.device_time for e in events) / 1e3
+            / iters, inverse / 1e3 / iters)
+
+
 def phase_fit_timing(dev, out, configs):
     """ms per Adam iteration of each configuration's fit on one (256, 200)
     buffer cut from the flagship trajectories, timed in turns (forward
     order, then reversed) so that clock drift hits every configuration
-    alike."""
+    alike; then the default configuration's device time per iteration."""
     sim = _main_sim(dev)
     data = _fit_buffer(sim, out)
     gp = sim.learned_dynamics.gp
@@ -931,6 +1015,11 @@ def phase_fit_timing(dev, out, configs):
         print(f"[fit] {label} {configs[label] or 'default MVGP'}: "
               f"{ms[label]:.3f} ms per Adam iteration at (B, K) = ({B}, {K})"
               f" (turns: {', '.join(f'{x:.3f}' for x in t)})", flush=True)
+    ops, dev_ms, inverse_ms = _adam_device_ms(gps["main"], data)
+    print(f"[fit] main: {ops:.1f} device operations and {dev_ms:.3f} ms of "
+          f"device time per Adam iteration, of which the fit inverse kernel "
+          f"{inverse_ms:.3f} ms", flush=True)
+    _require(inverse_ms > 0, "the profile shows no fit inverse kernel")
     return ms
 
 
@@ -1002,7 +1091,7 @@ def run_pendulum(dev, x0s, card, label):
                  finite=finite, feasible=feas, certified=cert,
                  min_final_theta=th_end)
     print(f"{tag} outcomes {gates}", flush=True)
-    print(f"{tag} with the earlier kernels: "
+    print(f"{tag} before kernel 1 was rebuilt: "
           f"{EARLIER_OUTCOMES[f'pendulum {label}']}", flush=True)
     _require(gates["mean_damage"] <= 0.01 and gates["frac_damaged"] <= 0.05
              and gates["frac_wedge_gt_2pct"] <= 0.05 and finite

@@ -51,10 +51,14 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 17, 50, 200, 241, 242, 300])
-def test_chol_kernels_match_plain(cuda, n):
-    """Both sides of the shared-memory limit (n <= 241 in shared memory)."""
-    K = torch.tensor(_trajectory_grams(5, n, n), dtype=torch.float32,
+@pytest.mark.parametrize("n,B", [(1, 5), (17, 5), (50, 5), (200, 5),
+                                 (224, 5), (225, 5), (236, 5), (237, 5),
+                                 (241, 5), (242, 5), (300, 5), (200, 300)])
+def test_chol_kernels_match_plain(cuda, n, B):
+    """Both sides of the shared-memory limits (`chol_linv`: n <= 241;
+    `kinv_logdet`: padded order 224, so n <= 224), and a batch
+    of more thread blocks than two waves of the card's SMs."""
+    K = torch.tensor(_trajectory_grams(B, n, n), dtype=torch.float32,
                      device=cuda)
     L, Linv = ck.chol_linv(K)
     Kinv, ld = ck.kinv_logdet(K)
@@ -69,6 +73,62 @@ def test_chol_kernels_match_plain(cuda, n):
     assert float((Kinv.double() @ K64 - eye).abs().max()) < 5e-2
     assert float((ld.double() - torch.linalg.slogdet(K64)[1]).abs().max()) \
         < 0.5
+    assert torch.equal(Kinv, Kinv.transpose(-1, -2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nb", [(1, 32), (17, 32), (50, 32), (200, 32),
+                                  (224, 32), (225, 32), (203, 32), (50, 16),
+                                  (200, 16), (200, 8), (100, 64), (300, 64)])
+def test_kinv_logdet_matches_its_steps(cuda, n, nb):
+    """Kernel 1 against the plain version of its own steps (blocked factor,
+    "row" assembly, product, logdet), in shared memory and in the global
+    scratch, n a multiple of 4 or not: elementwise on well-conditioned SPD
+    (f32, relative 1e-4), and by the fit-path residual bars on a batch of
+    64 trajectory Grams."""
+    S = torch.tensor(_spd(4, n, n + nb), dtype=torch.float32, device=cuda)
+    got, want = ck.kinv_logdet(S, nb), ck.kinv_logdet_blocked_plain(S, nb)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g, w) < 1e-4
+    K = torch.tensor(_trajectory_grams(64, n, n + 1), dtype=torch.float32,
+                     device=cuda)
+    Kinv, ld = ck.kinv_logdet(K, nb)
+    torch.cuda.synchronize()
+    K64 = K.double()
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    assert float((Kinv.double() @ K64 - eye).abs().max()) < 5e-2
+    assert float((ld.double() - torch.linalg.slogdet(K64)[1]).abs().max()) \
+        < 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [50, 200, 260])
+def test_kinv_logdet_nan_stays_in_its_matrix(cuda, n):
+    """A NaN pivot is not floored: that matrix's inverse and logdet come
+    back non-finite (the fit's guard reads finiteness), and the other
+    matrices of the batch are the bits of a run without it."""
+    S = torch.tensor(_spd(3, n, n), dtype=torch.float32, device=cuda)
+    clean = ck.kinv_logdet(S)
+    S[1, 0, 0] = float("nan")
+    Kinv, ld = ck.kinv_logdet(S)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(ld[1]))
+    assert not bool(torch.isfinite(Kinv[1]).any())
+    for b in (0, 2):
+        assert torch.equal(Kinv[b], clean[0][b])
+        assert torch.equal(ld[b], clean[1][b])
+
+
+@pytest.mark.cuda
+def test_kinv_logdet_same_bits_twice(cuda):
+    """No atomics and one fixed order of every sum: two launches on the
+    same input give the same bits."""
+    K = torch.tensor(_trajectory_grams(300, 200, 9), dtype=torch.float32,
+                     device=cuda)
+    first, again = ck.kinv_logdet(K), ck.kinv_logdet(K)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
 @pytest.mark.cuda
@@ -96,6 +156,11 @@ def test_kernels_count_launches_and_reject_bad_input(cuda):
         ck.kinv_logdet(K.transpose(-1, -2)[:, :, :3].contiguous())
     with pytest.raises(ValueError):
         ck.kinv_logdet(torch.eye(1025, device=cuda)[None].contiguous())
+    with pytest.raises(ValueError):
+        ck.kinv_logdet(K, nb=6)
+    before = ck.kinv_logdet.launches
+    ck.kinv_logdet(K)
+    assert ck.kinv_logdet.launches == before + 1
 
 
 @pytest.mark.cuda
