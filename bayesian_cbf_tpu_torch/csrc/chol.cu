@@ -31,17 +31,21 @@
 //     each, which at 7 block rows have fewer tiles than the block has
 //     warps in the early rows and pay two to four barriers per block row.
 //
-//   * `chol_core_kernel` (entry point `chol_linv_launch`) replaces
+//   * `chol_linv_kernel` (entry point `chol_linv_launch`) replaces
 //     `_chol_linv_kernel` (batched_chol_with_inv, assembly="kernel"), the
-//     cache refresh's L and L^{-1}.  One thread block per matrix, a
-//     right-looking Cholesky one column at a time and a Gauss-Jordan
-//     elimination that builds L^{-1} in the same column loop, with the TPU
-//     kernel's pivot floor (L[j][j] = d * rsqrt(max(d, 1e-12))).  What
-//     bounds it: the serial column recurrence (three block-wide barriers
-//     per column, a trailing update with no register reuse, L^{-1}
-//     accumulated in global memory).  The working matrix is in shared
-//     memory up to n = 241, else in a global scratch.  It is to be rebuilt
-//     on `factor` + `linv_rows` like the kernel above.
+//     cache refresh's L and L^{-1}.  The TPU kernel is `_factor_assemble`
+//     with L written on the way; here it is the launch above with the
+//     product replaced by two copy-outs:
+//       1. `factor<W, false>` as above (Dinv to the global scratch);
+//       2. L's lower triangle copied out of A to L (n x n), zero above the
+//          diagonal (the factor leaves the upper part of a diagonal block
+//          of A unspecified), lanes along the row;
+//       3. `linv_rows`, in place over L;
+//       4. the lower triangle of A, now L^{-1}, copied out likewise.
+//     What bounds it: as above, one block per matrix and two waves, the
+//     factor's pivot chain and the barriers of stage 3; the copy-outs are
+//     two thirds of the bytes the function must move (its bound is bytes)
+//     and a tenth of its time.
 
 #include <cuda_runtime.h>
 
@@ -49,85 +53,7 @@
 
 namespace {
 
-constexpr int kThreads = 512;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB opt-in limit per block
-
-__global__ void __launch_bounds__(kThreads)
-chol_core_kernel(const float* __restrict__ K, int n,
-                 float* __restrict__ a_scratch,  // (B, n, n) or null (smem)
-                 float* __restrict__ X,          // (B, n, n): L^{-1}
-                 float* __restrict__ L_out)      // (B, n, n)
-{
-    extern __shared__ float smem[];
-    __shared__ float piv_s;
-    const size_t nn = (size_t)n * n;
-    const int b = blockIdx.x;
-    const int tid = threadIdx.x;
-    const int nt = blockDim.x;
-    const float* Kb = K + b * nn;
-    float* A = a_scratch ? a_scratch + b * nn : smem;
-    float* Xb = X + b * nn;
-
-    for (size_t t = tid; t < nn; t += nt) {
-        A[t] = Kb[t];
-        const int i = (int)(t / n), c = (int)(t % n);
-        Xb[t] = (i == c) ? 1.0f : 0.0f;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < n; ++j) {
-        if (tid == 0) {
-            const float d = A[(size_t)j * n + j];
-            const float s = rsqrtf(fmaxf(d, 1e-12f));
-            piv_s = s;
-            A[(size_t)j * n + j] = d * s;
-        }
-        __syncthreads();
-        const float s = piv_s;
-        // scale column j below the pivot, and row j of the inverse
-        for (int i = j + 1 + tid; i < n; i += nt) A[(size_t)i * n + j] *= s;
-        for (int c = tid; c <= j; c += nt) Xb[(size_t)j * n + c] *= s;
-        __syncthreads();
-        // trailing rank-1 update of the lower triangle, and elimination of
-        // column j from the rows of the inverse below row j
-        const int m = n - j - 1;
-        const size_t mm = (size_t)m * m;
-        for (size_t t = tid; t < mm; t += nt) {
-            const int i = j + 1 + (int)(t / m);
-            const int k = j + 1 + (int)(t % m);
-            if (k <= i)
-                A[(size_t)i * n + k] -= A[(size_t)i * n + j] * A[(size_t)k * n + j];
-        }
-        const size_t mx = (size_t)m * (j + 1);
-        for (size_t t = tid; t < mx; t += nt) {
-            const int i = j + 1 + (int)(t / (j + 1));
-            const int c = (int)(t % (j + 1));
-            Xb[(size_t)i * n + c] -= A[(size_t)i * n + j] * Xb[(size_t)j * n + c];
-        }
-        __syncthreads();
-    }
-
-    float* Lb = L_out + b * nn;
-    for (size_t t = tid; t < nn; t += nt) {
-        const int i = (int)(t / n), c = (int)(t % n);
-        Lb[t] = (c <= i) ? A[t] : 0.0f;
-    }
-}
-
-int launch_core(const float* K, int B, int n, float* a_scratch, float* X,
-                float* L, cudaStream_t stream) {
-    const size_t smem = (size_t)n * n * sizeof(float);
-    const bool use_smem = smem <= (size_t)kMaxSmemBytes;
-    if (use_smem) {
-        cudaError_t err = cudaFuncSetAttribute(
-            chol_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    chol_core_kernel<<<B, kThreads, use_smem ? smem : 0, stream>>>(
-        K, n, use_smem ? nullptr : a_scratch, X, L);
-    return (int)cudaGetLastError();
-}
 
 // One matrix of the batch, by its thread block; A is the working matrix's
 // home.  W = chol_blocked::row_width(nb): 32 with 512 threads, 64 with 256.
@@ -193,27 +119,110 @@ int launch_kinv(const float* K, float* Kinv, float* logdet, float* dinv,
     return (int)cudaGetLastError();
 }
 
+// The leading n x n of A's lower triangle to `out` (n x n, row stride n),
+// zero above the diagonal: a warp per row, lanes along it.  Nothing here
+// synchronises: the caller makes A visible to the block first.
+__device__ __forceinline__ void store_lower(const float* A, int ld, int n,
+                                            float* __restrict__ out) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    for (int r = warp; r < n; r += nwarps) {
+        const float* Ar = A + (size_t)r * ld;
+        float* o = out + (size_t)r * n;
+        for (int c = lane; c < n; c += 32) o[c] = c <= r ? Ar[c] : 0.0f;
+    }
+}
+
+// One matrix of the batch, as kinv_logdet_body: the factor, L out, L^{-1}
+// in place over L, L^{-1} out.
+template <int W>
+__device__ __forceinline__ void chol_linv_body(
+    const float* __restrict__ K, int n, int N, int nb, float* A, int ld,
+    float* small, float* dinv, float* __restrict__ L,
+    float* __restrict__ Linv) {
+    const size_t b = blockIdx.x;
+    chol_blocked::factor<W, false>(K + b * n * n, n, N, nb, A, ld, small,
+                                   nullptr, dinv + b * N * nb);
+    store_lower(A, ld, n, L + b * n * n);
+    __syncthreads();  // L is read before L^{-1} overwrites it
+    const float* D = dinv + b * N * nb;
+    chol_blocked::linv_rows(A, ld, D, N, nb, small);
+    store_lower(A, ld, n, Linv + b * n * n);
+}
+
+template <int W, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+chol_linv_kernel(const float* __restrict__ K, int n, int N, int nb,
+                 int use_smem,
+                 float* a_scratch,  // (B, N, N) or null (smem)
+                 float* dinv,       // (B, N, nb) scratch, written and read
+                 float* __restrict__ L,     // (B, n, n)
+                 float* __restrict__ Linv)  // (B, n, n)
+{
+    extern __shared__ __align__(16) float linv_smem[];
+    // one inlined copy of the body per home of the working matrix
+    if (use_smem)
+        chol_linv_body<W>(
+            K, n, N, nb,
+            linv_smem + chol_blocked::small_bytes(nb) / sizeof(float),
+            chol_blocked::stride(N), linv_smem, dinv, L, Linv);
+    else
+        chol_linv_body<W>(K, n, N, nb,
+                          a_scratch + (size_t)blockIdx.x * N * N, N,
+                          linv_smem, dinv, L, Linv);
+}
+
+template <int W, int THREADS>
+int launch_linv(const float* K, float* L, float* Linv, float* dinv,
+                float* a_scratch, int B, int n, int N, int nb, int use_smem,
+                cudaStream_t stream) {
+    const size_t smem =
+        use_smem ? kinv_smem_bytes(N, nb) : chol_blocked::small_bytes(nb);
+    cudaError_t err = cudaFuncSetAttribute(
+        chol_linv_kernel<W, THREADS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    chol_linv_kernel<W, THREADS><<<B, THREADS, smem, stream>>>(
+        K, n, N, nb, use_smem, use_smem ? nullptr : a_scratch, dinv, L, Linv);
+    return (int)cudaGetLastError();
+}
+
+// Whether (n, N, nb) is a padded order and block size that the blocked
+// kernels of this file take.
+bool blocked_shape_ok(int n, int N, int nb) {
+    return nb >= 4 && nb <= chol_blocked::kMaxNb && nb % 4 == 0 &&
+           N % nb == 0 && N >= n && n >= 1;
+}
+
 }  // namespace
 
 // ---- host launchers (plain C interface, loaded with ctypes) ----
 extern "C" {
 
-// Whether a matrix of order n is factored in shared memory (1) or needs
-// the (B, n, n) global scratch `a_scratch` (0).
-int chol_uses_smem(int n) {
-    return (size_t)n * n * sizeof(float) <= (size_t)kMaxSmemBytes ? 1 : 0;
-}
-
-// (L, L^{-1}) of a batch K (B, n, n), f32, contiguous.
-int chol_linv_launch(const float* K, float* L, float* Linv, float* a_scratch,
-                     int B, int n, void* stream) {
-    return launch_core(K, B, n, a_scratch, Linv, L, (cudaStream_t)stream);
-}
-
 // Whether kinv_logdet_launch factors a padded order N at block nb in shared
 // memory (1) or needs the (B, N, N) global scratch `a_scratch` (0).
 int kinv_logdet_uses_smem(int N, int nb) {
     return kinv_smem_bytes(N, nb) <= (size_t)kMaxSmemBytes ? 1 : 0;
+}
+
+// The same for chol_linv_launch: its working matrix has the same layout.
+int chol_linv_uses_smem(int N, int nb) {
+    return kinv_logdet_uses_smem(N, nb);
+}
+
+// (L, L^{-1}) (B, n, n) each, exactly lower triangular, of a batch
+// K (B, n, n), f32, contiguous; N, nb and dinv as for kinv_logdet_launch
+// below.
+int chol_linv_launch(const float* K, float* L, float* Linv, float* dinv,
+                     float* a_scratch, int B, int n, int N, int nb,
+                     void* stream) {
+    if (!blocked_shape_ok(n, N, nb)) return -1;
+    const int use_smem = chol_linv_uses_smem(N, nb);
+    if (nb <= 32)
+        return launch_linv<32, 512>(K, L, Linv, dinv, a_scratch, B, n, N, nb,
+                                    use_smem, (cudaStream_t)stream);
+    return launch_linv<64, 256>(K, L, Linv, dinv, a_scratch, B, n, N, nb,
+                                use_smem, (cudaStream_t)stream);
 }
 
 // (K^{-1} (B, n, n), logdet K (B,)) of a batch K (B, n, n), f32,
@@ -222,9 +231,7 @@ int kinv_logdet_uses_smem(int N, int nb) {
 int kinv_logdet_launch(const float* K, float* Kinv, float* logdet,
                        float* dinv, float* a_scratch, int B, int n, int N,
                        int nb, void* stream) {
-    if (nb < 4 || nb > chol_blocked::kMaxNb || nb % 4 != 0 || N % nb != 0 ||
-        N < n || n < 1)
-        return -1;
+    if (!blocked_shape_ok(n, N, nb)) return -1;
     const int use_smem = kinv_logdet_uses_smem(N, nb);
     if (nb <= 32)
         return launch_kinv<32, 512>(K, Kinv, logdet, dinv, a_scratch, B, n, N,

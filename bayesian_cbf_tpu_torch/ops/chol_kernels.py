@@ -28,6 +28,27 @@ NB_BLK = 32   # block size of the blocked factor (`chol_dinv` and the solves)
 # the plain version still returns a finite (and useless) inverse: 16 from
 # between 1.0e7 and 2.0e7, 32 from 6.5e6 (`probe_kinv_logdet.py`).
 KINV_NB = 16
+# Block size of the cache refresh `chol_linv`.  Every posterior is a matmul
+# against its L^{-1}, and it runs 12 to 72 times a rollout, so accuracy
+# decides and the time only has to beat the plain version's: of 8, 16 and
+# 32, the most accurate block size that is faster on the card than
+# `chol_linv_plain`.  On an NVIDIA H100 80GB HBM3 at 700 W, trajectory
+# Grams (256, 200) at the refresh's conditioning (7.7e5): ms / largest
+# distance of L^{-1} from the f64 L^{-1}, relative to its largest entry /
+# max|Linv L - I| (`probe_chol_linv.py`; `chip_smoke.py` prints the same
+# table):
+#     nb 8     0.688 ms   1.5e-3   4.7e-4      <- chosen
+#     nb 16    0.316 ms   2.8e-3   4.4e-4
+#     nb 32    0.273 ms   5.8e-3   4.7e-4
+#     plain    1.027 ms   2.9e-3   4.1e-4
+# (the column-at-a-time kernel this one replaced: 3.975 ms, 7.0e-4,
+# 3.9e-4).  The residual does not see the difference.  The JAX package
+# refreshes at 32 (`pallas_chol.NB_BLK`); here 32 also turns non-finite
+# from a condition number of 6.5e6 (8: from 2e7; 16: 1e7 to 2e7), and on
+# the reference-schedule pendulum's own refresh Grams it sent 50 of 6144
+# episode refreshes to a higher rung of the jitter ladder, where 8, 16,
+# the plain version and the replaced kernel all accept the first rung.
+LINV_NB = 8
 MAX_NB = 64
 
 
@@ -91,29 +112,35 @@ def _scratch(need: bool, shape, like: torch.Tensor):
         if need else None
 
 
-def _a_scratch(lib, K, B, n):
-    if lib.chol_uses_smem(n):
-        return torch.empty(0, device=K.device), None
-    buf = torch.empty((B, n, n), dtype=K.dtype, device=K.device)
-    return buf, buf.data_ptr()
+def _check_blocked_nb(nb: int, what: str):
+    """The kernels that assemble L^{-1} in place read float4 along a block."""
+    _check_nb(nb, what)
+    if nb % 4:
+        raise ValueError(f"{what}: nb must be a multiple of 4, got {nb}")
 
 
-def chol_linv(K: torch.Tensor):
-    """(L, L^{-1}) of a batch K (B, n, n).  Replaces the TPU kernel
-    `pallas_chol._chol_linv_kernel` on CUDA."""
+def chol_linv(K: torch.Tensor, nb: int = LINV_NB):
+    """(L, L^{-1}) of a batch K (B, n, n), both exactly lower triangular.
+    Replaces the TPU kernel `pallas_chol._chol_linv_kernel` on CUDA: the
+    blocked factor of the identity-padded K at block size nb (a multiple
+    of 4), L copied out, L^{-1} assembled in place over L by block rows
+    and copied out, in one launch."""
     if K.device.type == "cpu":
         return chol_linv_plain(K)
     B, n = check_batch(K, "chol_linv")
+    _check_blocked_nb(nb, "chol_linv")
+    N = padded_order(n, nb)
     lib = _build.load("chol")
     L = torch.empty_like(K)
     Linv = torch.empty_like(K)
-    keep, a_ptr = _a_scratch(lib, K, B, n)
-    rc = lib.chol_linv_launch(K.data_ptr(), L.data_ptr(), Linv.data_ptr(),
-                              a_ptr, B, n,
-                              torch.cuda.current_stream(K.device).cuda_stream)
+    dinv = torch.empty((B, N, nb), dtype=K.dtype, device=K.device)
+    a = _scratch(not lib.chol_linv_uses_smem(N, nb), (B, N, N), K)
+    rc = lib.chol_linv_launch(
+        K.data_ptr(), L.data_ptr(), Linv.data_ptr(), dinv.data_ptr(),
+        None if a is None else a.data_ptr(), B, n, N, nb,
+        torch.cuda.current_stream(K.device).cuda_stream)
     _build.check(rc, "chol_linv_launch")
     chol_linv.launches += 1
-    del keep
     return L, Linv
 
 
@@ -128,9 +155,7 @@ def kinv_logdet(K: torch.Tensor, nb: int = KINV_NB):
     if K.device.type == "cpu":
         return kinv_logdet_plain(K)
     B, n = check_batch(K, "kinv_logdet")
-    _check_nb(nb, "kinv_logdet")
-    if nb % 4:
-        raise ValueError(f"kinv_logdet: nb must be a multiple of 4, got {nb}")
+    _check_blocked_nb(nb, "kinv_logdet")
     N = padded_order(n, nb)
     lib = _build.load("chol")
     Kinv = torch.empty_like(K)
@@ -246,6 +271,16 @@ def kinv_logdet_blocked_plain(K: torch.Tensor, nb: int = KINV_NB):
     diag = torch.diagonal(L, dim1=-2, dim2=-1)[:, :n]
     logdet = 2.0 * torch.sum(torch.log(torch.clamp(diag, min=1e-20)), -1)
     return Kinv, logdet
+
+
+def chol_linv_blocked_plain(K: torch.Tensor, nb: int = LINV_NB):
+    """(L, L^{-1}) by the steps of the `chol_linv` kernel: the blocked
+    factor of the identity-padded K with its diagonal-block inverses and
+    the "row" assembly of L^{-1}, both cut to (n, n)."""
+    n = K.shape[-1]
+    L, Dinv = chol_dinv_plain(K, nb)
+    Linv = assemble_linv(L, Dinv, nb, "row")
+    return L[:, :n, :n].contiguous(), Linv[:, :n, :n].contiguous()
 
 
 def chol_linv_assembled(K: torch.Tensor, assembly: str, nb: int = NB_BLK):

@@ -19,12 +19,16 @@ Phases (each raises on failure; nothing is caught):
                  random cones (no whole number of blocks).  The blocked
                  factor's kernels (the fit inverse among them) and the IPM
                  print their registers, stack and spill bytes beside their
-                 times; the fit inverse also its time at other block
-                 sizes and beside the routes that compute the same
-                 through several launches.
+                 times; the fit inverse and the refresh factorization
+                 also their times and accuracy at other block sizes and
+                 beside the routes that compute the same through several
+                 launches.
   4. main     -- the batched unicycle learn-and-control loop (B=256
-                 episodes, K=200, 2000 steps, bench.py's configuration),
-                 with launch counts and the batched-learning outcome gate.
+                 episodes, K=200, 2000 steps, bench.py's configuration)
+                 through bench_torch.py's protocol: a cold rollout and a
+                 warm one of the same inputs, each with its wall and its
+                 launch counts, the batched-learning outcome gate, and
+                 the accepted rungs of its cache refreshes.
   5. configs  -- the same loop under three other MVGP configurations:
                  (a) fit_inverse "chol" with linv_assembly "row",
                  (b) fit_inverse "sweep_full", (c) fused_gram; each with
@@ -33,20 +37,20 @@ Phases (each raises on failure; nothing is caught):
   6. pendulum -- the batched pendulum online-learning loop (B=256, K=200,
                  250 steps, dt 2e-3, bench.py's two configurations:
                  continuous rank-1 updates with sparse refits, and the
-                 reference schedule), with launch counts, the outcome
-                 gates of scripts/check_outcomes.py, and ms and device
-                 operations per step.
+                 reference schedule), cold and warm like main, with launch
+                 counts, the outcome gates of scripts/check_outcomes.py,
+                 the accepted rungs, and ms and device operations per step.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
-import math
-import subprocess
-import sys
 import time
 
 import numpy as np
 import torch
+
+import bench_torch as bt
 
 
 # one H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
@@ -152,19 +156,7 @@ def _spd(B, n, seed):
 
 
 def phase_device():
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: CUDA is not available; this smoke run "
-                         "needs an NVIDIA card and never runs on the CPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}", flush=True)
-    return torch.device("cuda"), card
+    return bt.require_card("chip_smoke")
 
 
 def phase_build():
@@ -241,6 +233,10 @@ def _check_chol_kernels(dev):
             if name == "kernel" or n < 1024:
                 _require(finite and r_inv < bar and r_fac < 1e-5,
                          f"chol_linv {name} n={n} resid {r_inv} {r_fac}")
+        print(f"[chol_linv] ({B}, {n}): kernel "
+              f"{_cuda_ms(lambda: ck.chol_linv(K), 5):.3f} ms, plain "
+              f"{_cuda_ms(lambda: ck.chol_linv_plain(K), 5):.3f} ms",
+              flush=True)
     # elementwise agreement on well-conditioned SPD at the main-path shape
     S = torch.tensor(_spd(256, 200, 1), dtype=torch.float32, device=dev)
     for key, fn, plain in (("kinv_logdet", ck.kinv_logdet,
@@ -271,6 +267,7 @@ def _check_chol_kernels(dev):
         out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         library_ms=library_ms, **bound)
     out["kinv_logdet"].update(_kinv_logdet_design(dev, S, K))
+    out["chol_linv"].update(_chol_linv_design(dev, S, K))
     return out
 
 
@@ -324,6 +321,73 @@ def _kinv_logdet_design(dev, S, K):
                 **usage)
 
 
+# kernel 2 at (256, 200) before it was rebuilt on the blocked factor (one
+# column at a time, L^{-1} eliminated in global memory), NVIDIA H100 80GB
+# HBM3 at 700 W
+CHOL_LINV_EARLIER_MS = 3.978
+
+
+def _chol_linv_design(dev, S, K):
+    """What the refresh factorization's design rests on, at (256, 200):
+    agreement with the plain version of its own steps on the SPD batch S;
+    the Gram of a partly filled reservoir (identity rows for the empty
+    slots); on the trajectory Grams K, per block size, its time, the
+    distance of L^{-1} from the f64 L^{-1} (relative to its largest entry,
+    the largest over the batch) and max|Linv L - I|, beside the plain
+    version's and the route through kernel 8 and the "row" assembly in
+    matmuls; registers and spills."""
+    from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
+    got, want = ck.chol_linv(S), ck.chol_linv_blocked_plain(S)
+    rel = max(float((g - w).abs().max() / w.abs().max())
+              for g, w in zip(got, want))
+    print(f"[chol_linv] SPD (256, 200): relative error vs the plain version "
+          f"of its own steps {rel:.3e}", flush=True)
+    _require(rel < 1e-4, f"chol_linv disagrees with its steps: {rel}")
+    n, filled = K.shape[-1], 130
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    resid = lambda L, Linv: float((Linv.double() @ L.double() - eye)
+                                  .abs().max())
+    m = (torch.arange(n, device=dev) < filled).to(K.dtype)
+    Km = K * (m[:, None] * m[None, :]) + torch.diag(1.0 - m)
+    L, Linv = ck.chol_linv(Km)
+    r_fac = float((L.double() @ L.double().transpose(-1, -2) - Km.double())
+                  .abs().max())
+    tail = bool((L[:, filled:] == eye[filled:].float()).all()
+                & (Linv[:, filled:] == eye[filled:].float()).all())
+    print(f"[chol_linv] (256, 200) with {filled} of {n} slots filled: "
+          f"max|Linv L - I| {resid(L, Linv):.3e}, max|LL^T - K| {r_fac:.3e}, "
+          f"the empty slots' rows are the identity's: {tail}", flush=True)
+    _require(resid(L, Linv) < 5e-2 and r_fac < 1e-5 and tail,
+             "chol_linv fails on a partly filled reservoir")
+    L64 = torch.linalg.cholesky(K.double())
+    exact = torch.linalg.solve_triangular(L64, eye.expand_as(L64),
+                                          upper=False)
+    far = lambda Linv: float(((Linv.double() - exact).abs().amax((-1, -2))
+                              / exact.abs().amax((-1, -2))).max())
+    by_nb = {}
+    for nb in (8, 16, 32):
+        L, Linv = ck.chol_linv(K, nb)
+        by_nb[nb] = dict(ms=_cuda_ms(lambda: ck.chol_linv(K, nb), 20),
+                         rel_err_vs_f64=far(Linv), resid=resid(L, Linv))
+    L, Linv = ck.chol_linv_plain(K)
+    plain = dict(ms=_cuda_ms(lambda: ck.chol_linv_plain(K), 20),
+                 rel_err_vs_f64=far(Linv), resid=resid(L, Linv))
+    L, Linv = ck.chol_linv_assembled(K, "row")
+    composed = dict(ms=_cuda_ms(lambda: ck.chol_linv_assembled(K, "row"), 20),
+                    rel_err_vs_f64=far(Linv), resid=resid(L, Linv))
+    usage = _usage("chol", "chol_linv_kernel<32, 512>")
+    row = lambda d: (f"{d['ms']:.4f} ms, {d['rel_err_vs_f64']:.3e} from the "
+                     f"f64 L^-1, max|Linv L - I| {d['resid']:.3e}")
+    print(f"[chol_linv] (256, 200) by block size (the wrapper's: "
+          f"{ck.LINV_NB}): " + "; ".join(f"nb {nb}: {row(d)}"
+                                         for nb, d in by_nb.items())
+          + f"; plain: {row(plain)}; kernel 8 + \"row\" assembly in matmuls "
+          f"(nb {ck.NB_BLK}): {row(composed)}; before the rebuild "
+          f"{CHOL_LINV_EARLIER_MS} ms; {_usage_text(usage)}", flush=True)
+    return dict(by_nb=by_nb, plain=plain, chol_linv_assembled_row=composed,
+                **usage)
+
+
 def _random_cones(B, seed, nx=4, dims=(4, 4, 4, 1)):
     rng = np.random.default_rng(seed)
     C, d = len(dims), max(dims)
@@ -343,7 +407,7 @@ def _step0_cones(dev, x0s, seed):
     """The main path's real step-0 SOCPs (prior model, fresh weights)."""
     from bayesian_cbf_tpu_torch.control.bayes_controller import controller_socp
     from bayesian_cbf_tpu_torch.solvers.socp import _pad_cones
-    sim = _main_sim(dev)
+    sim = bt.unicycle_sim(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = sim.learned_dynamics.init_state(x0s.shape[0], gen, dev,
                                             torch.float32)
@@ -543,7 +607,7 @@ def _pendulum_step0_cones(dev, x0s):
     from bayesian_cbf_tpu_torch.control.learned_socp_controller import (
         learned_socp_cones)
     from bayesian_cbf_tpu_torch.solvers.socp import _pad_cones
-    sim = _pendulum_sim(dev)
+    sim = bt.pendulum_sim(dev)
     lrn = sim.learned
     gen = torch.Generator(device=dev).manual_seed(3)
     state = lrn.init_state(x0s.shape[0], gen, dev, torch.float32)
@@ -816,40 +880,6 @@ def _check_cholsolve_kernels(dev):
     return out
 
 
-def _main_sim(dev):
-    from bayesian_cbf_tpu_torch.experiments.unicycle import (
-        make_ackermann_tracking_sim)
-    # bench.py's configuration (bench.py:70-77) with its defaults
-    return make_ackermann_tracking_sim(
-        dt=0.001, numSteps=2000, true_L=1.0, mean_L=12.0,
-        kernel_diag_A=(1.0, 1.0, 1.0), max_risk=0.01,
-        enable_learning=True, train_every_n_steps=400,
-        max_train=200, training_iter=100,
-        socp_iters=25, warm_start=True, socp_iters_warm=15,
-        training_iter_warm=10,
-        first_fit_coarse_stride=4, first_fit_refine_iter=15,
-        device=dev, dtype=torch.float32)
-
-
-def _x0s(dev, B=256):
-    from bayesian_cbf_tpu_torch.experiments.unicycle import STATE_START
-    rng = np.random.default_rng(0)
-    x0 = np.asarray(STATE_START)[None] + 0.01 * rng.normal(size=(B, 3))
-    return torch.tensor(x0, dtype=torch.float32, device=dev)
-
-
-def _counters():
-    from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
-    from bayesian_cbf_tpu_torch.ops import gram as gm
-    from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
-    from bayesian_cbf_tpu_torch.ops import sweep_kernels as sk
-    return dict(ipm=ik.ipm, kinv_logdet=ck.kinv_logdet,
-                chol_linv=ck.chol_linv, chol_dinv=ck.chol_dinv,
-                sweep=sk.batched_kinv_logdet, gram=gm.fused_gram_kb,
-                cholsolve_logdet=ck.cholsolve_logdet,
-                solve_with_factor=ck.solve_with_factor)
-
-
 def _expected_launches(lrn, T, warm_start):
     """Launches of each kernel that one rollout of T steps with learner
     `lrn` implies: one IPM per step, plus the step-0 warm start when the
@@ -864,7 +894,7 @@ def _expected_launches(lrn, T, warm_start):
     warm = (lrn.training_iter_warm if lrn.warm_refits_differ
             else lrn.training_iter)
     iters = first + (n_fits - 1) * warm if n_fits else 0
-    want = dict.fromkeys(_counters(), 0)
+    want = dict.fromkeys(bt.counters(), 0)
     want["ipm"] = T + int(warm_start)
     chol = "chol_linv" if gp.fit_assembly == "kernel" else "chol_dinv"
     want[dict(cholk="kinv_logdet", chol=chol, sweep="sweep",
@@ -904,75 +934,150 @@ def _adam_ms(gp, data, iters=10):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-# Outcomes of the same runs before the fit inverse (kernel 1) was rebuilt on
-# the blocked factor, on an NVIDIA H100 80GB HBM3 at 700 W, printed beside
-# this run's: kernel 1 now rounds as the blocked factor does, so every run
-# that fits through it moves within the reference's roundoff sensitivity;
-# runs (a) and (b) do not launch it.
+# Outcomes of the same runs before the refresh factorization (kernel 2) was
+# rebuilt on the blocked factor, on an NVIDIA H100 80GB HBM3 at 700 W,
+# printed beside this run's: kernel 2 now rounds as the blocked factor
+# does, so every run that refreshes its cache through it moves within the
+# reference's roundoff sensitivity; run (a) does not launch it.
 EARLIER_OUTCOMES = {
-    "main": "min clearance 0.1449, mean goal distance 0.5232, fraction "
+    "main": "min clearance 0.1449, mean goal distance 0.5231, fraction "
             "within 1.0 of goal 1.0000",
     "config a": "min clearance 0.1013, mean goal distance 0.5340, fraction "
                 "within 1.0 of goal 0.9922",
-    "config b": "as main then: min clearance 0.1449, mean goal distance "
-                "0.5232, fraction within 1.0 of goal 1.0000",
-    "config c": "min clearance 0.1476, mean goal distance 0.5255, fraction "
-                "within 1.0 of goal 1.0000, feasible fraction 0.9992",
-    "pendulum continuous": "certified 0.0412, feasible 0.9971, min final "
+    "config b": "min clearance 0.1449, mean goal distance 0.5232, fraction "
+                "within 1.0 of goal 1.0000",
+    "config c": "min clearance 0.1477, mean goal distance 0.5239, fraction "
+                "within 1.0 of goal 1.0000, feasible fraction 1.0000",
+    "pendulum continuous": "certified 0.0411, feasible 0.9971, min final "
                            "theta 1.6326, no damage, no wedge entry",
-    "pendulum reference schedule": "certified 0.7296, feasible 0.9952, no "
-                                   "damage, no wedge entry",
+    "pendulum reference schedule": "certified 0.7370, feasible 0.9953, min "
+                                   "final theta 1.380, no damage, no wedge "
+                                   "entry",
 }
 
 
-def run_config(dev, x0s, card, label, **gp_options):
-    """One rollout of the flagship batch with the MVGP options; launch
-    counts, finiteness, moved hyperparameters and the outcome gate."""
-    from bayesian_cbf_tpu_torch.experiments.unicycle import (
-        STATE_GOAL, goal_distance, min_obstacle_clearance)
-    from bayesian_cbf_tpu_torch.sim.rollout import simulate_unicycle_batch
-    sim = _main_sim(dev)
-    lrn = sim.learned_dynamics
-    sim = sim._replace(learned_dynamics=lrn._replace(
-        gp=lrn.gp._replace(**gp_options)))
-    B, T = x0s.shape[0], sim.numSteps
-    gen = torch.Generator(device=dev).manual_seed(1)
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = simulate_unicycle_batch(sim, x0s, generator=gen)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    print(f"[{label}] {gp_options or 'default MVGP'}: B={B} K={lrn.max_train} T={T}: "
-          f"wall {wall:.3f} s, {B * T / wall:.1f} steps/s on {card}",
-          flush=True)
-    print(f"[{label}] launches {launches}", flush=True)
-    _require(bool(torch.isfinite(out.X).all()), f"{label}: non-finite state")
-    want = _expected_launches(sim.learned_dynamics, T,
-                              sim.controller.warm_start)
-    _require(launches == want, f"{label}: launch counts {launches} != {want}")
+@contextlib.contextmanager
+def _refresh_grams(into):
+    """While active, append to `into` (a list, or None for no recording)
+    the masked Gram of every cache refresh: the input of the first of the
+    three factorizations of `MVGP.refresh_cache`'s jitter ladder.  Only for
+    runs whose fit does not factor through `chol_inv_fwd` as well (the
+    default fit inverse)."""
+    if into is None:
+        yield
+        return
+    from bayesian_cbf_tpu_torch.ops import cholinv
+    inner, calls = cholinv.chol_inv_fwd, [0]
+
+    def recording(K, assembly="kernel"):
+        if calls[0] % 3 == 0:
+            into.append(K)
+        calls[0] += 1
+        return inner(K, assembly)
+
+    cholinv.chol_inv_fwd = recording
+    try:
+        yield
+    finally:
+        cholinv.chol_inv_fwd = inner
+
+
+def _rung_counts(grams, fn):
+    """Episodes per accepted rung (first, + 1e-5 scale, + 1e-2 scale) of
+    `MVGP.refresh_cache`'s jitter ladder over the refresh Grams `grams`,
+    were K -> (L, L^{-1}) computed by `fn`: a rung is accepted when L and
+    L^{-1} are finite and max|L^{-1}| < 1e6."""
+    counts = [0, 0, 0]
+    for K in grams:
+        eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+        scale = torch.clamp(torch.diagonal(K, dim1=-2, dim2=-1).abs()
+                            .mean(-1), min=1.0)[:, None, None]
+        sane = lambda L, Linv: (torch.isfinite(L).all(-1).all(-1)
+                                & torch.isfinite(Linv).all(-1).all(-1)
+                                & (Linv.abs().amax((-2, -1)) < 1e6))
+        ok = sane(*fn(K))
+        bump = torch.where(ok[:, None, None], torch.zeros_like(scale),
+                           1e-5 * scale)
+        ok2 = ok | sane(*fn(K + bump * eye))
+        counts[0] += int(ok.sum())
+        counts[1] += int((ok2 & ~ok).sum())
+        counts[2] += int((~ok2).sum())
+    return counts
+
+
+def _print_rungs(label, grams):
+    """The accepted rungs of the run's cache refreshes under the kernel and
+    under the plain version, on the run's own refresh Grams."""
+    from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
+    rungs = dict(kernel=_rung_counts(grams, ck.chol_linv),
+                 plain=_rung_counts(grams, ck.chol_linv_plain))
+    print(f"[{label}] {len(grams)} cache refreshes, episodes per accepted "
+          f"rung (first / + 1e-5 scale / + 1e-2 scale): {rungs}; the kernel "
+          f"before the rebuild on the same Grams: "
+          f"{EARLIER_RUNGS.get(label, 'not counted')}", flush=True)
+    return rungs
+
+
+# The same counts under kernel 2 as it was before the rebuild (one column
+# at a time), on the refresh Grams of these runs, NVIDIA H100 80GB HBM3 at
+# 700 W (probe_chol_linv.py --earlier-csrc).
+EARLIER_RUNGS = {"main": [1024, 0, 0],
+                 "pendulum continuous": [512, 0, 0],
+                 "pendulum reference schedule": [6144, 0, 0]}
+
+
+def _check_rollouts(label, record, warm_start):
+    """Print the cold (first) and the warm (second, same inputs) wall of a
+    protocol record and hold every rollout's launch counts to the
+    schedule's."""
+    sim = record["sim"]
+    lrn = getattr(sim, "learned_dynamics", None) or sim.learned
+    B, T = record["batch"], record["episode_steps"]
+    cold = record["first_wall_s"]
+    line = (f"[{label}] B={B} K={lrn.max_train} T={T}: cold wall (the "
+            f"process's first rollout of this configuration) {cold:.3f} s, "
+            f"{B * T / cold:.1f} steps/s, {cold * 1e3 / T:.3f} ms per step")
+    for w in record["walls_s"]:
+        line += (f"; warm wall (the same inputs again) {w:.3f} s, "
+                 f"{B * T / w:.1f} steps/s, {w * 1e3 / T:.3f} ms per step")
+    print(f"{line} (fits included) on {record['card']}", flush=True)
+    print(f"[{label}] launches {record['launches']}", flush=True)
+    want = _expected_launches(lrn, T, warm_start)
+    for r in record["rollouts"]:
+        _require(r["launches"] == want,
+                 f"{label}: launch counts {r['launches']} != {want}")
+
+
+def run_config(dev, card, label, reps=0, grams=None, **gp_options):
+    """Rollouts of the flagship batch with the MVGP options through
+    bench_torch's protocol (a cold one, then `reps` warm ones of the same
+    inputs, with equal outcomes or it raises); launch counts, finiteness,
+    moved hyperparameters and the outcome gate.  grams: a list that
+    receives the refresh Grams of the cold rollout."""
+    print(f"[{label}] {gp_options or 'default MVGP'}", flush=True)
+    with _refresh_grams(grams):
+        record = bt.run_protocol("unicycle", dev, reps=reps, card=card,
+                                 gp_options=gp_options)
+    if grams:
+        del grams[len(grams) // (1 + reps):]
+    sim, out = record["sim"], record["out"]
+    _check_rollouts(label, record, sim.controller.warm_start)
     ls = out.knl.lengthscale
     moved = float(((ls[:, -1] - ls[:, 0]).abs().amax(-1) > 1e-4)
                   .float().mean())
-    clear = float(min_obstacle_clearance(sim, out).min())
-    gd = goal_distance(out, STATE_GOAL)
-    mean_gd = float(gd.mean())
-    frac = float((gd < 1.0).float().mean())
-    feas = float(out.info.feasible.float().mean())
-    print(f"[{label}] min clearance {clear:.4f}, mean goal distance "
-          f"{mean_gd:.4f}, fraction within 1.0 of goal {frac:.4f}, "
-          f"feasible fraction {feas:.4f}, episodes whose lengthscale moved "
+    o = record["outcomes"]
+    print(f"[{label}] min clearance {o['min_clearance']:.4f}, mean goal "
+          f"distance {o['mean_goal_distance']:.4f}, fraction within 1.0 of "
+          f"goal {o['frac_within_1']:.4f}, feasible fraction "
+          f"{o['feasible']:.4f}, episodes whose lengthscale moved "
           f"{moved:.4f}", flush=True)
-    if label in EARLIER_OUTCOMES:
-        print(f"[{label}] before kernel 1 was rebuilt: "
-              f"{EARLIER_OUTCOMES[label]}", flush=True)
+    print(f"[{label}] before kernel 2 was rebuilt: "
+          f"{EARLIER_OUTCOMES[label]}", flush=True)
     _require(moved > 0.9, f"{label}: the fit did not move the hyperparameters")
-    _require(clear > 0 and mean_gd < 1.5 and frac > 0.7,
-             f"{label}: batched-learning outcome gate failed")
-    return launches, out
+    _require(not record["gate_failures"],
+             f"{label}: batched-learning outcome gate failed: "
+             f"{record['gate_failures']}")
+    return record["launches"], out
 
 
 def _adam_device_ms(gp, data, iters=5):
@@ -1002,7 +1107,7 @@ def phase_fit_timing(dev, out, configs):
     buffer cut from the flagship trajectories, timed in turns (forward
     order, then reversed) so that clock drift hits every configuration
     alike; then the default configuration's device time per iteration."""
-    sim = _main_sim(dev)
+    sim = bt.unicycle_sim(dev)
     data = _fit_buffer(sim, out)
     gp = sim.learned_dynamics.gp
     gps = {label: gp._replace(**opts) for label, opts in configs.items()}
@@ -1023,84 +1128,30 @@ def phase_fit_timing(dev, out, configs):
     return ms
 
 
-def _pendulum_sim(dev, **kw):
-    from bayesian_cbf_tpu_torch.experiments.pendulum import (
-        make_pendulum_online_sim)
-    # bench.py's pendulum (bench.py:260-319): max_train 200, 250 steps,
-    # dt 2e-3, f32, with the configuration's keywords
-    return make_pendulum_online_sim(max_train=200, device=dev,
-                                    dtype=torch.float32, **kw)
-
-
-def _pendulum_x0s(dev, B=256):
-    """theta0 = 7 pi / 12 and omega0 = 0, each + 0.05 N(0, 1) (bench.py's
-    perturbation, from a numpy seed)."""
-    from bayesian_cbf_tpu_torch.experiments.pendulum import THETA0
-    rng = np.random.default_rng(7)
-    x0 = np.array([THETA0, 0.0])[None] + 0.05 * rng.normal(size=(B, 2))
-    return torch.tensor(x0, dtype=torch.float32, device=dev)
-
-
-PENDULUM_CONFIGS = {
-    "continuous": dict(continuous_updates=True, train_every_n_steps=100,
-                       training_iter_warm=5, first_fit_coarse_stride=3,
-                       first_fit_refine_iter=5),
-    "reference schedule": dict(training_iter_warm=10),
-}
-
-
-def run_pendulum(dev, x0s, card, label):
-    """One batch of pendulum episodes in a configuration of
-    PENDULUM_CONFIGS: launch counts, finiteness, moved hyperparameters, the
-    outcome gates of scripts/check_outcomes.py (pendulum_batched_safe and
-    pendulum_batched_cu_safe, with feasible >= 0.95 for both)."""
-    from bayesian_cbf_tpu_torch.experiments.pendulum import (
-        pendulum_damage_fraction, pendulum_wedge_fraction,
-        run_pendulum_online_batch)
-    sim = _pendulum_sim(dev, **PENDULUM_CONFIGS[label])
-    lrn = sim.learned
-    B, T = x0s.shape[0], sim.numSteps
-    gen = torch.Generator(device=dev).manual_seed(5)
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = run_pendulum_online_batch(sim, x0s, generator=gen)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    tag = f"[pendulum {label}]"
-    print(f"{tag} {PENDULUM_CONFIGS[label]}: B={B} K={lrn.max_train} T={T}: "
-          f"wall {wall:.3f} s, {B * T / wall:.1f} steps/s, "
-          f"{wall * 1e3 / T:.3f} ms per step (fits included) on {card}",
+def run_pendulum(dev, card, label, grams):
+    """The pendulum batch in a configuration of bench_torch's
+    PENDULUM_CONFIGS through its protocol (a cold rollout, then a warm one
+    of the same inputs, with equal outcomes or it raises): launch counts, finiteness, the outcome gates of
+    scripts/check_outcomes.py (pendulum_batched_safe and
+    pendulum_batched_cu_safe, with feasible >= 0.95 for both).  grams: a
+    list that receives the refresh Grams of the cold rollout."""
+    tag = f"pendulum {label}"
+    print(f"[{tag}] {bt.PENDULUM_CONFIGS[label]}", flush=True)
+    with _refresh_grams(grams):
+        record = bt.run_protocol(tag, dev, reps=1, card=card)
+    del grams[len(grams) // 2:]
+    _check_rollouts(tag, record, warm_start=False)
+    gates = record["outcomes"]
+    print(f"[{tag}] outcomes {gates}", flush=True)
+    print(f"[{tag}] before kernel 2 was rebuilt: {EARLIER_OUTCOMES[tag]}",
           flush=True)
-    print(f"{tag} launches {launches}", flush=True)
-    want = _expected_launches(lrn, T, warm_start=False)
-    _require(launches == want, f"{tag}: launch counts {launches} != {want}")
-    th = out.X[..., 0]
-    dmg = pendulum_damage_fraction(th)
-    wdg = pendulum_wedge_fraction(th)
-    finite = bool(torch.isfinite(out.X).all())
-    feas = float(out.info.feasible.float().mean())
-    cert = float(out.info.certified.float().mean())
-    th_end = float(out.X[:, -1, 0].min())
-    gates = dict(mean_damage=float(dmg.mean()),
-                 frac_damaged=float((dmg > 0).float().mean()),
-                 frac_wedge_gt_2pct=float((wdg > 0.02).float().mean()),
-                 finite=finite, feasible=feas, certified=cert,
-                 min_final_theta=th_end)
-    print(f"{tag} outcomes {gates}", flush=True)
-    print(f"{tag} before kernel 1 was rebuilt: "
-          f"{EARLIER_OUTCOMES[f'pendulum {label}']}", flush=True)
-    _require(gates["mean_damage"] <= 0.01 and gates["frac_damaged"] <= 0.05
-             and gates["frac_wedge_gt_2pct"] <= 0.05 and finite
-             and feas >= 0.95, f"{tag}: outcome gate failed")
-    if lrn.continuous_updates:
-        _require(th_end > math.pi / 4 + math.pi / 8,
-                 f"{tag}: an episode ended at theta {th_end}, inside or "
-                 f"below the wedge edge")
-    return launches, dict(wall_s=wall, steps_per_s=B * T / wall, **gates)
+    _require(not record["gate_failures"],
+             f"{tag}: outcome gate failed: {record['gate_failures']}")
+    B, T = record["batch"], record["episode_steps"]
+    cold, warm_s = record["first_wall_s"], record["walls_s"][0]
+    return record["launches"], dict(
+        wall_s=cold, steps_per_s=B * T / cold, warm_wall_s=warm_s,
+        warm_steps_per_s=B * T / warm_s, **gates)
 
 
 def _aten_ops(fn):
@@ -1132,7 +1183,7 @@ def phase_pendulum_profile(dev, x0s, steps=20):
         learned_socp_control)
     from bayesian_cbf_tpu_torch.experiments.pendulum import (
         run_pendulum_online_batch)
-    sim = _pendulum_sim(dev, **PENDULUM_CONFIGS["continuous"])._replace(
+    sim = bt.pendulum_sim(dev, **bt.PENDULUM_CONFIGS["continuous"])._replace(
         numSteps=steps)
     run = lambda: run_pendulum_online_batch(
         sim, x0s, generator=torch.Generator(device=dev).manual_seed(6))
@@ -1208,8 +1259,8 @@ def phase_pendulum_profile(dev, x0s, steps=20):
 def main():
     dev, card = phase_device()
     phase_build()
-    x0s = _x0s(dev)
-    px0s = _pendulum_x0s(dev)
+    x0s = bt.unicycle_x0s(dev)
+    px0s = bt.pendulum_x0s(dev)
     chol = _check_chol_kernels(dev)
     cones = lambda B, seed, **kw: [
         torch.tensor(a, dtype=torch.float32, device=dev)
@@ -1224,14 +1275,22 @@ def main():
     sweep = _check_sweep_kernel(dev)
     dinv = _check_chol_dinv_kernel(dev)
     solve = _check_cholsolve_kernels(dev)
-    main_path, out = run_config(dev, x0s, card, "main")
+    grams = {"main": []}
+    main_path, out = run_config(dev, card, "main", reps=1,
+                                grams=grams["main"])
+    rungs = {"main": _print_rungs("main", grams.pop("main"))}
     configs = dict(main={}, a=dict(fit_inverse="chol", linv_assembly="row"),
                    b=dict(fit_inverse="sweep_full"), c=dict(fused_gram=True))
-    runs = {k: run_config(dev, x0s, card, f"config {k}", **configs[k])[0]
+    runs = {k: run_config(dev, card, f"config {k}", **configs[k])[0]
             for k in "abc"}
     phase_fit_timing(dev, out, configs)
-    pend = {label: run_pendulum(dev, px0s, card, label)
-            for label in PENDULUM_CONFIGS}
+    pend = {}
+    for label in bt.PENDULUM_CONFIGS:
+        grams = []
+        pend[label] = run_pendulum(dev, card, label, grams)
+        rungs[f"pendulum {label}"] = _print_rungs(f"pendulum {label}", grams)
+    del grams
+    chol["chol_linv"]["accepted_rungs"] = rungs
     runs.update({f"pendulum {k}": v[0] for k, v in pend.items()})
     profile_stats = phase_pendulum_profile(dev, px0s)
 

@@ -20,6 +20,9 @@ With --earlier-csrc DIR, DIR/chol.cu is a copy of the source as it was
 before the kernel was rebuilt on the blocked factor (one column at a
 time; entry point kinv_logdet_launch(K, Kinv, logdet, X, A, B, n,
 stream)); it is built too and joins 2 and 3.
+
+This probe covers kernel 1 only; the refresh factorization (`chol_linv`,
+the other kernel of csrc/chol.cu) has probe_chol_linv.py.
 """
 import argparse
 import ctypes

@@ -52,12 +52,13 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,B", [(1, 5), (17, 5), (50, 5), (200, 5),
-                                 (224, 5), (225, 5), (236, 5), (237, 5),
-                                 (241, 5), (242, 5), (300, 5), (200, 300)])
+                                 (224, 5), (225, 5), (232, 5), (233, 5),
+                                 (240, 5), (241, 5), (300, 5), (200, 300)])
 def test_chol_kernels_match_plain(cuda, n, B):
-    """Both sides of the shared-memory limits (`chol_linv`: n <= 241;
-    `kinv_logdet`: padded order 224, so n <= 224), and a batch
-    of more thread blocks than two waves of the card's SMs."""
+    """Both sides of the shared-memory limits (the working matrix of
+    `chol_linv` and `kinv_logdet` fits at a padded order of 224 at nb 16
+    and 32 and of 232 at nb 8, beyond that it lives in a global scratch),
+    and a batch of more thread blocks than two waves of the card's SMs."""
     K = torch.tensor(_trajectory_grams(B, n, n), dtype=torch.float32,
                      device=cuda)
     L, Linv = ck.chol_linv(K)
@@ -132,6 +133,72 @@ def test_kinv_logdet_same_bits_twice(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,nb,B", [(1, 16, 4), (17, 16, 4), (50, 8, 4),
+                                    (50, 32, 4), (203, 16, 4), (200, 8, 256),
+                                    (200, 16, 256), (200, 32, 256),
+                                    (232, 8, 4), (233, 8, 4), (224, 32, 4),
+                                    (225, 32, 4), (100, 64, 4), (300, 64, 4)])
+def test_chol_linv_matches_its_steps(cuda, n, nb, B):
+    """Kernel 2 against the plain version of its own steps (blocked factor,
+    "row" assembly, both cut to n), in shared memory and in the global
+    scratch, n a multiple of 4 or not, at the main path's (256, 200):
+    elementwise on well-conditioned SPD (f32, relative 1e-4); its L is
+    kernel 8's bit for bit (the same device code); exactly lower
+    triangular, contiguous outputs; and the refresh bars on trajectory
+    Grams with a partly filled buffer among them (identity rows for the
+    empty slots)."""
+    S = torch.tensor(_spd(B, n, n + nb), dtype=torch.float32, device=cuda)
+    got, want = ck.chol_linv(S, nb), ck.chol_linv_blocked_plain(S, nb)
+    L8, _ = ck.chol_dinv(S, nb)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == (B, n, n) and g.is_contiguous()
+        assert _rel(g, w) < 1e-4
+        assert float(torch.triu(g, 1).abs().max()) == 0.0
+    assert torch.equal(got[0], L8[:, :n, :n])
+    K = _trajectory_grams(8, n, n + 1)
+    m = (np.arange(n) < (2 * n) // 3).astype(float)
+    K[1] = K[1] * (m[:, None] * m[None, :]) + np.diag(1.0 - m)
+    K = torch.tensor(K, dtype=torch.float32, device=cuda)
+    L, Linv = ck.chol_linv(K, nb)
+    torch.cuda.synchronize()
+    K64, Ld = K.double(), L.double()
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    assert float((Linv.double() @ Ld - eye).abs().max()) < 5e-2
+    assert float((Ld @ Ld.transpose(-1, -2) - K64).abs().max()
+                 / K64.abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [50, 200, 260])
+def test_chol_linv_nan_stays_in_its_matrix(cuda, n):
+    """A NaN pivot is not floored: that matrix's L^{-1} comes back
+    non-finite (the refresh ladder reads finiteness), and the other
+    matrices of the batch are the bits of a run without it."""
+    S = torch.tensor(_spd(3, n, n), dtype=torch.float32, device=cuda)
+    clean = ck.chol_linv(S)
+    S[1, 0, 0] = float("nan")
+    L, Linv = ck.chol_linv(S)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(L[1]).all())
+    assert not bool(torch.isfinite(Linv[1]).all())
+    for b in (0, 2):
+        assert torch.equal(L[b], clean[0][b])
+        assert torch.equal(Linv[b], clean[1][b])
+
+
+@pytest.mark.cuda
+def test_chol_linv_same_bits_twice(cuda):
+    """No atomics and one fixed order of every sum: two launches on the
+    same input give the same bits."""
+    K = torch.tensor(_trajectory_grams(300, 200, 9), dtype=torch.float32,
+                     device=cuda)
+    first, again = ck.chol_linv(K), ck.chol_linv(K)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
 def test_chol_kernels_agree_with_plain_elementwise(cuda):
     rng = np.random.default_rng(0)
     A = rng.normal(size=(8, 64, 64))
@@ -158,6 +225,8 @@ def test_kernels_count_launches_and_reject_bad_input(cuda):
         ck.kinv_logdet(torch.eye(1025, device=cuda)[None].contiguous())
     with pytest.raises(ValueError):
         ck.kinv_logdet(K, nb=6)
+    with pytest.raises(ValueError):
+        ck.chol_linv(K, nb=6)
     before = ck.kinv_logdet.launches
     ck.kinv_logdet(K)
     assert ck.kinv_logdet.launches == before + 1
