@@ -45,9 +45,9 @@ KINV_NB = 16
 # 3.9e-4).  The residual does not see the difference.  The JAX package
 # refreshes at 32 (`pallas_chol.NB_BLK`); here 32 also turns non-finite
 # from a condition number of 6.5e6 (8: from 2e7; 16: 1e7 to 2e7), and on
-# the reference-schedule pendulum's own refresh Grams it sent 50 of 6144
-# episode refreshes to a higher rung of the jitter ladder, where 8, 16,
-# the plain version and the replaced kernel all accept the first rung.
+# the reference-schedule pendulum's own refresh Grams it sends 65 of 6144
+# episode refreshes to a higher rung of the jitter ladder (16: one), where
+# 8, the plain version and the replaced kernel all accept the first rung.
 LINV_NB = 8
 MAX_NB = 64
 

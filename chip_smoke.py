@@ -1131,10 +1131,11 @@ def phase_fit_timing(dev, out, configs):
 def run_pendulum(dev, card, label, grams):
     """The pendulum batch in a configuration of bench_torch's
     PENDULUM_CONFIGS through its protocol (a cold rollout, then a warm one
-    of the same inputs, with equal outcomes or it raises): launch counts, finiteness, the outcome gates of
-    scripts/check_outcomes.py (pendulum_batched_safe and
-    pendulum_batched_cu_safe, with feasible >= 0.95 for both).  grams: a
-    list that receives the refresh Grams of the cold rollout."""
+    of the same inputs, with equal outcomes or it raises): launch counts,
+    finiteness, the outcome gates of scripts/check_outcomes.py
+    (pendulum_batched_safe and pendulum_batched_cu_safe, with feasible >=
+    0.95 for both).  grams: a list that receives the refresh Grams of the
+    cold rollout."""
     tag = f"pendulum {label}"
     print(f"[{tag}] {bt.PENDULUM_CONFIGS[label]}", flush=True)
     with _refresh_grams(grams):
@@ -1275,10 +1276,9 @@ def main():
     sweep = _check_sweep_kernel(dev)
     dinv = _check_chol_dinv_kernel(dev)
     solve = _check_cholsolve_kernels(dev)
-    grams = {"main": []}
-    main_path, out = run_config(dev, card, "main", reps=1,
-                                grams=grams["main"])
-    rungs = {"main": _print_rungs("main", grams.pop("main"))}
+    grams = []
+    main_path, out = run_config(dev, card, "main", reps=1, grams=grams)
+    rungs = {"main": _print_rungs("main", grams)}
     configs = dict(main={}, a=dict(fit_inverse="chol", linv_assembly="row"),
                    b=dict(fit_inverse="sweep_full"), c=dict(fused_gram=True))
     runs = {k: run_config(dev, card, f"config {k}", **configs[k])[0]
