@@ -55,70 +55,6 @@ namespace {
 
 constexpr int kMaxSmemBytes = 232448;  // 227 KB opt-in limit per block
 
-// One matrix of the batch, by its thread block; A is the working matrix's
-// home.  W = chol_blocked::row_width(nb): 32 with 512 threads, 64 with 256.
-// The block's pointers into the batch are formed where each stage needs
-// them, not held in registers across the factor's diagonal blocks.
-template <int W>
-__device__ __forceinline__ void kinv_logdet_body(
-    const float* __restrict__ K, int n, int N, int nb, float* A, int ld,
-    float* small, float* dinv, float* __restrict__ Kinv,
-    float* __restrict__ logdet) {
-    const size_t b = blockIdx.x;
-    chol_blocked::factor<W, false>(K + b * n * n, n, N, nb, A, ld, small,
-                                   nullptr, dinv + b * N * nb);
-    if (threadIdx.x < 32) {
-        const float ld2 = chol_blocked::logdet_of_diag(A, ld, n);
-        if (threadIdx.x == 0) logdet[b] = ld2;
-    }
-    __syncthreads();  // the diagonal is read before L^{-1} overwrites it
-    chol_blocked::linv_rows(A, ld, dinv + b * N * nb, N, nb, small);
-    chol_blocked::gram_of_rows(A, ld, n, Kinv + b * n * n);
-}
-
-template <int W, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-kinv_logdet_kernel(const float* __restrict__ K, int n, int N, int nb,
-                   int use_smem,
-                   float* a_scratch,  // (B, N, N) or null (smem)
-                   float* dinv,       // (B, N, nb) scratch, written and read
-                   float* __restrict__ Kinv,    // (B, n, n)
-                   float* __restrict__ logdet)  // (B,)
-{
-    extern __shared__ __align__(16) float kinv_smem[];
-    // one inlined copy of the body per home of the working matrix, so that
-    // the copy in shared memory addresses it as shared memory
-    if (use_smem)
-        kinv_logdet_body<W>(
-            K, n, N, nb,
-            kinv_smem + chol_blocked::small_bytes(nb) / sizeof(float),
-            chol_blocked::stride(N), kinv_smem, dinv, Kinv, logdet);
-    else
-        kinv_logdet_body<W>(K, n, N, nb,
-                            a_scratch + (size_t)blockIdx.x * N * N, N,
-                            kinv_smem, dinv, Kinv, logdet);
-}
-
-__host__ inline size_t kinv_smem_bytes(int N, int nb) {
-    return chol_blocked::small_bytes(nb) + chol_blocked::matrix_bytes(N);
-}
-
-template <int W, int THREADS>
-int launch_kinv(const float* K, float* Kinv, float* logdet, float* dinv,
-                float* a_scratch, int B, int n, int N, int nb, int use_smem,
-                cudaStream_t stream) {
-    const size_t smem =
-        use_smem ? kinv_smem_bytes(N, nb) : chol_blocked::small_bytes(nb);
-    cudaError_t err = cudaFuncSetAttribute(
-        kinv_logdet_kernel<W, THREADS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kinv_logdet_kernel<W, THREADS><<<B, THREADS, smem, stream>>>(
-        K, n, N, nb, use_smem, use_smem ? nullptr : a_scratch, dinv, Kinv,
-        logdet);
-    return (int)cudaGetLastError();
-}
-
 // The leading n x n of A's lower triangle to `out` (n x n, row stride n),
 // zero above the diagonal: a warp per row, lanes along it.  Nothing here
 // synchronises: the caller makes A visible to the block first.
@@ -133,65 +69,120 @@ __device__ __forceinline__ void store_lower(const float* A, int ld, int n,
     }
 }
 
-// One matrix of the batch, as kinv_logdet_body: the factor, L out, L^{-1}
-// in place over L, L^{-1} out.
-template <int W>
-__device__ __forceinline__ void chol_linv_body(
-    const float* __restrict__ K, int n, int N, int nb, float* A, int ld,
-    float* small, float* dinv, float* __restrict__ L,
-    float* __restrict__ Linv) {
-    const size_t b = blockIdx.x;
-    chol_blocked::factor<W, false>(K + b * n * n, n, N, nb, A, ld, small,
-                                   nullptr, dinv + b * N * nb);
-    store_lower(A, ld, n, L + b * n * n);
-    __syncthreads();  // L is read before L^{-1} overwrites it
-    const float* D = dinv + b * N * nb;
-    chol_blocked::linv_rows(A, ld, D, N, nb, small);
-    store_lower(A, ld, n, Linv + b * n * n);
+// The two bodies: what a thread block does with its matrix of the batch.
+// A is the working matrix's home, W = chol_blocked::row_width(nb): 32 with
+// 512 threads, 64 with 256.  The block's pointers into the batch are
+// formed where each stage needs them, not held in registers across the
+// factor's diagonal blocks.
+
+// The fit inverse: out0 = K^{-1} (B, n, n), out1 = logdet K (B,).
+struct KinvLogdet {
+    template <int W>
+    static __device__ __forceinline__ void run(
+        const float* __restrict__ K, int n, int N, int nb, float* A, int ld,
+        float* small, float* dinv, float* __restrict__ Kinv,
+        float* __restrict__ logdet) {
+        const size_t b = blockIdx.x;
+        chol_blocked::factor<W, false>(K + b * n * n, n, N, nb, A, ld, small,
+                                       nullptr, dinv + b * N * nb);
+        if (threadIdx.x < 32) {
+            const float ld2 = chol_blocked::logdet_of_diag(A, ld, n);
+            if (threadIdx.x == 0) logdet[b] = ld2;
+        }
+        __syncthreads();  // the diagonal is read before L^{-1} overwrites it
+        chol_blocked::linv_rows(A, ld, dinv + b * N * nb, N, nb, small);
+        chol_blocked::gram_of_rows(A, ld, n, Kinv + b * n * n);
+    }
+};
+
+// The refresh factorization: out0 = L, out1 = L^{-1}, (B, n, n) each: the
+// factor, L out, L^{-1} in place over L, L^{-1} out.
+struct CholLinv {
+    template <int W>
+    static __device__ __forceinline__ void run(
+        const float* __restrict__ K, int n, int N, int nb, float* A, int ld,
+        float* small, float* dinv, float* __restrict__ L,
+        float* __restrict__ Linv) {
+        const size_t b = blockIdx.x;
+        chol_blocked::factor<W, false>(K + b * n * n, n, N, nb, A, ld, small,
+                                       nullptr, dinv + b * N * nb);
+        store_lower(A, ld, n, L + b * n * n);
+        __syncthreads();  // L is read before L^{-1} overwrites it
+        const float* D = dinv + b * N * nb;
+        chol_blocked::linv_rows(A, ld, D, N, nb, small);
+        store_lower(A, ld, n, Linv + b * n * n);
+    }
+};
+
+// One inlined copy of Body per home of the working matrix, so that the
+// copy in shared memory addresses it as shared memory.
+template <class Body, int W>
+__device__ __forceinline__ void at_home(
+    const float* __restrict__ K, int n, int N, int nb, int use_smem,
+    float* a_scratch, float* dinv, float* __restrict__ out0,
+    float* __restrict__ out1) {
+    extern __shared__ __align__(16) float smem[];
+    if (use_smem)
+        Body::template run<W>(
+            K, n, N, nb, smem + chol_blocked::small_bytes(nb) / sizeof(float),
+            chol_blocked::stride(N), smem, dinv, out0, out1);
+    else
+        Body::template run<W>(K, n, N, nb,
+                              a_scratch + (size_t)blockIdx.x * N * N, N, smem,
+                              dinv, out0, out1);
+}
+
+// Both kernels: K (B, n, n); a_scratch (B, N, N) or null (shared memory);
+// dinv a (B, N, nb) scratch, written and read; the body's two outputs.
+#define BLOCKED_KERNEL_ARGS                                               \
+    const float *__restrict__ K, int n, int N, int nb, int use_smem,      \
+        float *a_scratch, float *dinv, float *__restrict__ out0,          \
+        float *__restrict__ out1
+
+template <int W, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+kinv_logdet_kernel(BLOCKED_KERNEL_ARGS) {
+    at_home<KinvLogdet, W>(K, n, N, nb, use_smem, a_scratch, dinv, out0, out1);
 }
 
 template <int W, int THREADS>
 __global__ void __launch_bounds__(THREADS)
-chol_linv_kernel(const float* __restrict__ K, int n, int N, int nb,
-                 int use_smem,
-                 float* a_scratch,  // (B, N, N) or null (smem)
-                 float* dinv,       // (B, N, nb) scratch, written and read
-                 float* __restrict__ L,     // (B, n, n)
-                 float* __restrict__ Linv)  // (B, n, n)
-{
-    extern __shared__ __align__(16) float linv_smem[];
-    // one inlined copy of the body per home of the working matrix
-    if (use_smem)
-        chol_linv_body<W>(
-            K, n, N, nb,
-            linv_smem + chol_blocked::small_bytes(nb) / sizeof(float),
-            chol_blocked::stride(N), linv_smem, dinv, L, Linv);
-    else
-        chol_linv_body<W>(K, n, N, nb,
-                          a_scratch + (size_t)blockIdx.x * N * N, N,
-                          linv_smem, dinv, L, Linv);
+chol_linv_kernel(BLOCKED_KERNEL_ARGS) {
+    at_home<CholLinv, W>(K, n, N, nb, use_smem, a_scratch, dinv, out0, out1);
 }
 
-template <int W, int THREADS>
-int launch_linv(const float* K, float* L, float* Linv, float* dinv,
-                float* a_scratch, int B, int n, int N, int nb, int use_smem,
-                cudaStream_t stream) {
+using BlockedKernel = void (*)(BLOCKED_KERNEL_ARGS);
+
+__host__ inline size_t matrix_smem_bytes(int N, int nb) {
+    return chol_blocked::small_bytes(nb) + chol_blocked::matrix_bytes(N);
+}
+
+bool matrix_in_smem(int N, int nb) {
+    return matrix_smem_bytes(N, nb) <= (size_t)kMaxSmemBytes;
+}
+
+// One thread block per matrix: `wide` (W = 32, 512 threads) up to nb = 32,
+// `narrow` (W = 64, 256 threads) beyond.  -1 unless (n, N, nb) is a padded
+// order and block size that the blocked kernels take.
+int launch(BlockedKernel wide, BlockedKernel narrow, const float* K,
+           float* out0, float* out1, float* dinv, float* a_scratch, int B,
+           int n, int N, int nb, void* stream) {
+    if (!(nb >= 4 && nb <= chol_blocked::kMaxNb && nb % 4 == 0 &&
+          N % nb == 0 && N >= n && n >= 1))
+        return -1;
+    const int use_smem = matrix_in_smem(N, nb);
+    const BlockedKernel kernel = nb <= 32 ? wide : narrow;
+    const int threads = nb <= 32 ? 512 : 256;
     const size_t smem =
-        use_smem ? kinv_smem_bytes(N, nb) : chol_blocked::small_bytes(nb);
+        use_smem ? matrix_smem_bytes(N, nb) : chol_blocked::small_bytes(nb);
     cudaError_t err = cudaFuncSetAttribute(
-        chol_linv_kernel<W, THREADS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
-    chol_linv_kernel<W, THREADS><<<B, THREADS, smem, stream>>>(
-        K, n, N, nb, use_smem, use_smem ? nullptr : a_scratch, dinv, L, Linv);
+    kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+        K, n, N, nb, use_smem, use_smem ? nullptr : a_scratch, dinv, out0,
+        out1);
     return (int)cudaGetLastError();
-}
-
-// Whether (n, N, nb) is a padded order and block size that the blocked
-// kernels of this file take.
-bool blocked_shape_ok(int n, int N, int nb) {
-    return nb >= 4 && nb <= chol_blocked::kMaxNb && nb % 4 == 0 &&
-           N % nb == 0 && N >= n && n >= 1;
 }
 
 }  // namespace
@@ -199,16 +190,9 @@ bool blocked_shape_ok(int n, int N, int nb) {
 // ---- host launchers (plain C interface, loaded with ctypes) ----
 extern "C" {
 
-// Whether kinv_logdet_launch factors a padded order N at block nb in shared
-// memory (1) or needs the (B, N, N) global scratch `a_scratch` (0).
-int kinv_logdet_uses_smem(int N, int nb) {
-    return kinv_smem_bytes(N, nb) <= (size_t)kMaxSmemBytes ? 1 : 0;
-}
-
-// The same for chol_linv_launch: its working matrix has the same layout.
-int chol_linv_uses_smem(int N, int nb) {
-    return kinv_logdet_uses_smem(N, nb);
-}
+// Whether the launches below factor a padded order N at block nb in shared
+// memory (1) or need the (B, N, N) global scratch `a_scratch` (0).
+int chol_matrix_in_smem(int N, int nb) { return matrix_in_smem(N, nb); }
 
 // (L, L^{-1}) (B, n, n) each, exactly lower triangular, of a batch
 // K (B, n, n), f32, contiguous; N, nb and dinv as for kinv_logdet_launch
@@ -216,13 +200,8 @@ int chol_linv_uses_smem(int N, int nb) {
 int chol_linv_launch(const float* K, float* L, float* Linv, float* dinv,
                      float* a_scratch, int B, int n, int N, int nb,
                      void* stream) {
-    if (!blocked_shape_ok(n, N, nb)) return -1;
-    const int use_smem = chol_linv_uses_smem(N, nb);
-    if (nb <= 32)
-        return launch_linv<32, 512>(K, L, Linv, dinv, a_scratch, B, n, N, nb,
-                                    use_smem, (cudaStream_t)stream);
-    return launch_linv<64, 256>(K, L, Linv, dinv, a_scratch, B, n, N, nb,
-                                use_smem, (cudaStream_t)stream);
+    return launch(chol_linv_kernel<32, 512>, chol_linv_kernel<64, 256>, K, L,
+                  Linv, dinv, a_scratch, B, n, N, nb, stream);
 }
 
 // (K^{-1} (B, n, n), logdet K (B,)) of a batch K (B, n, n), f32,
@@ -231,13 +210,8 @@ int chol_linv_launch(const float* K, float* L, float* Linv, float* dinv,
 int kinv_logdet_launch(const float* K, float* Kinv, float* logdet,
                        float* dinv, float* a_scratch, int B, int n, int N,
                        int nb, void* stream) {
-    if (!blocked_shape_ok(n, N, nb)) return -1;
-    const int use_smem = kinv_logdet_uses_smem(N, nb);
-    if (nb <= 32)
-        return launch_kinv<32, 512>(K, Kinv, logdet, dinv, a_scratch, B, n, N,
-                                    nb, use_smem, (cudaStream_t)stream);
-    return launch_kinv<64, 256>(K, Kinv, logdet, dinv, a_scratch, B, n, N, nb,
-                                use_smem, (cudaStream_t)stream);
+    return launch(kinv_logdet_kernel<32, 512>, kinv_logdet_kernel<64, 256>, K,
+                  Kinv, logdet, dinv, a_scratch, B, n, N, nb, stream);
 }
 
 }  // extern "C"

@@ -301,13 +301,13 @@ class MVGP(NamedTuple):
         eye = _eye_like(Kb.shape[-1], Kb)
         return Kb * (m[:, :, None] * m[:, None, :]) + eye * (1.0 - m)[:, :, None]
 
-    def refresh_cache(self, params: MVGPParams, data: MVGPData) -> MVGPCache:
-        """Factor the masked Gram (three-rung scale-aware jitter ladder,
-        selected per episode) and precompute alpha = Kb^{-1} Y and
-        Linv = L^{-1}.  A rung is accepted only when its factor is finite
-        and max|Linv| < 1e6 (f32) / 1e12 (f64)."""
+    def factor_ladder(self, K):
+        """(L, L^{-1}) of the masked Gram K (B, k, k) by the three-rung
+        scale-aware jitter ladder (K, + 1e-5 scale, + 1e-2 scale more),
+        selected per episode: a rung is accepted only when its factor is
+        finite and max|Linv| < 1e6 (f32) / 1e12 (f64).  Also returns the
+        episodes per accepted rung, a (3,) integer tensor on K's device."""
         from ..ops.cholinv import chol_inv_fwd
-        K = self.masked_kb(params, data)
         eye = _eye_like(K.shape[-1], K)
         scale = torch.clamp(torch.mean(torch.abs(torch.diagonal(
             K, dim1=-2, dim2=-1)), -1), min=1.0)[:, None, None]
@@ -332,6 +332,21 @@ class MVGP(NamedTuple):
         L3, Linv3 = chol_inv_fwd(K + (bump1 + bump2) * eye, asm)
         L = torch.where(ok2, L, L3)
         Linv = torch.where(ok2, Linv, Linv3)
+        # ok implies ok2: an accepted first rung is kept as it is
+        n_ok, n_ok2 = ok.sum(), ok2.sum()
+        return L, Linv, torch.stack([n_ok, n_ok2 - n_ok,
+                                     ok2.numel() - n_ok2])
+
+    def refresh_cache(self, params: MVGPParams, data: MVGPData) -> MVGPCache:
+        """Factor the masked Gram (`factor_ladder`) and precompute
+        alpha = Kb^{-1} Y and Linv = L^{-1}.  The episodes per accepted rung
+        are added to `MVGP.refresh_cache.rungs`, a (3,) tensor (None until
+        the first refresh), without a host sync: set it to None before a
+        run and read it after, like a kernel wrapper's `launches`."""
+        L, Linv, rungs = self.factor_ladder(self.masked_kb(params, data))
+        seen = MVGP.refresh_cache.rungs
+        MVGP.refresh_cache.rungs = rungs if seen is None \
+            else seen + rungs.to(seen.device)
         Y = self.residual_Y(params, data)
         alpha = Linv.transpose(-1, -2) @ (Linv @ Y)
         return MVGPCache(L=L, alpha=alpha, Linv=Linv)
@@ -450,6 +465,9 @@ class MVGP(NamedTuple):
                                             inv_row)[:, None], cache.Linv)
         alpha = torch.where(wr[:, None, None], alpha_cand, cache.alpha)
         return MVGPCache(L=L, alpha=alpha, Linv=Linv)
+
+
+MVGP.refresh_cache.rungs = None
 
 
 def make_mvgp(x_dim: int, u_dim: int, **kw) -> MVGP:

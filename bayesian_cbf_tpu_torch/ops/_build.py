@@ -128,9 +128,8 @@ def ptxas_usage(name: str) -> list:
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "chol": {
-        "chol_linv_uses_smem": [_INT, _INT],
+        "chol_matrix_in_smem": [_INT, _INT],
         "chol_linv_launch": [_VP] * 5 + [_INT] * 4 + [_VP],
-        "kinv_logdet_uses_smem": [_INT, _INT],
         "kinv_logdet_launch": [_VP] * 5 + [_INT] * 4 + [_VP],
     },
     "ipm": {

@@ -119,6 +119,22 @@ def _check_blocked_nb(nb: int, what: str):
         raise ValueError(f"{what}: nb must be a multiple of 4, got {nb}")
 
 
+def _launch_per_matrix(entry: str, K: torch.Tensor, nb: int, out0, out1):
+    """Launch `entry` of csrc/chol.cu (one thread block per matrix of the
+    contiguous f32 CUDA batch K, on the blocked factor of the identity-
+    padded K at block size nb) into its two outputs."""
+    B, n, _ = K.shape
+    N = padded_order(n, nb)
+    lib = _build.load("chol")
+    dinv = torch.empty((B, N, nb), dtype=K.dtype, device=K.device)
+    a = _scratch(not lib.chol_matrix_in_smem(N, nb), (B, N, N), K)
+    rc = getattr(lib, f"{entry}_launch")(
+        K.data_ptr(), out0.data_ptr(), out1.data_ptr(), dinv.data_ptr(),
+        None if a is None else a.data_ptr(), B, n, N, nb,
+        torch.cuda.current_stream(K.device).cuda_stream)
+    _build.check(rc, f"{entry}_launch")
+
+
 def chol_linv(K: torch.Tensor, nb: int = LINV_NB):
     """(L, L^{-1}) of a batch K (B, n, n), both exactly lower triangular.
     Replaces the TPU kernel `pallas_chol._chol_linv_kernel` on CUDA: the
@@ -127,19 +143,10 @@ def chol_linv(K: torch.Tensor, nb: int = LINV_NB):
     and copied out, in one launch."""
     if K.device.type == "cpu":
         return chol_linv_plain(K)
-    B, n = check_batch(K, "chol_linv")
+    check_batch(K, "chol_linv")
     _check_blocked_nb(nb, "chol_linv")
-    N = padded_order(n, nb)
-    lib = _build.load("chol")
-    L = torch.empty_like(K)
-    Linv = torch.empty_like(K)
-    dinv = torch.empty((B, N, nb), dtype=K.dtype, device=K.device)
-    a = _scratch(not lib.chol_linv_uses_smem(N, nb), (B, N, N), K)
-    rc = lib.chol_linv_launch(
-        K.data_ptr(), L.data_ptr(), Linv.data_ptr(), dinv.data_ptr(),
-        None if a is None else a.data_ptr(), B, n, N, nb,
-        torch.cuda.current_stream(K.device).cuda_stream)
-    _build.check(rc, "chol_linv_launch")
+    L, Linv = torch.empty_like(K), torch.empty_like(K)
+    _launch_per_matrix("chol_linv", K, nb, L, Linv)
     chol_linv.launches += 1
     return L, Linv
 
@@ -154,19 +161,11 @@ def kinv_logdet(K: torch.Tensor, nb: int = KINV_NB):
     in place over L by block rows, and L^{-T} L^{-1}, in one launch."""
     if K.device.type == "cpu":
         return kinv_logdet_plain(K)
-    B, n = check_batch(K, "kinv_logdet")
+    check_batch(K, "kinv_logdet")
     _check_blocked_nb(nb, "kinv_logdet")
-    N = padded_order(n, nb)
-    lib = _build.load("chol")
     Kinv = torch.empty_like(K)
-    logdet = torch.empty((B,), dtype=K.dtype, device=K.device)
-    dinv = torch.empty((B, N, nb), dtype=K.dtype, device=K.device)
-    a = _scratch(not lib.kinv_logdet_uses_smem(N, nb), (B, N, N), K)
-    rc = lib.kinv_logdet_launch(
-        K.data_ptr(), Kinv.data_ptr(), logdet.data_ptr(), dinv.data_ptr(),
-        None if a is None else a.data_ptr(), B, n, N, nb,
-        torch.cuda.current_stream(K.device).cuda_stream)
-    _build.check(rc, "kinv_logdet_launch")
+    logdet = torch.empty(K.shape[:1], dtype=K.dtype, device=K.device)
+    _launch_per_matrix("kinv_logdet", K, nb, Kinv, logdet)
     kinv_logdet.launches += 1
     return Kinv, logdet
 

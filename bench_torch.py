@@ -2,25 +2,26 @@
 """Timing protocol of the PyTorch/CUDA port on one NVIDIA card: the two
 workloads of the JAX package's bench.py, timed as bench.py times them.
 
-    python3 bench_torch.py [--reps 3] [--batch 256]
+    python3 bench_torch.py
 
   * unicycle: the batched Ackermann tracking loop with online learning
     (B=256 episodes, 2000 steps, max_train 200, bench.py's configuration):
-    one warm-up rollout, then `reps` timed rollouts, each ended by
+    one warm-up rollout, then three timed rollouts, each ended by
     `torch.cuda.synchronize()`; `value` is B x T over their MEAN wall.
   * pendulum continuous / pendulum reference schedule: the batched
     pendulum online-learning loop (B=256, 250 steps, max_train 200) in
-    bench.py's two configurations: a first run, then the BEST of `reps`.
+    bench.py's two configurations: a first run, then the BEST of three.
 
 Every rollout of a workload starts from the same states and the same
 generator seed, so its repetitions must give the same outcomes; the run
 raises if they differ or if an outcome gate of scripts/check_outcomes.py
 fails.  One JSON line per workload, with bench.py's field names where they
-apply, the card's name and power limit, every repetition's wall, the
-kernels' launch counts per rollout and the outcomes the gates read.  It
-refuses to run without CUDA; nothing is caught; exit code 1 on failure.
+apply, the card's name and power limit, every repetition's wall and their
+spread, the kernels' launch counts and the cache refreshes' accepted rungs
+per rollout and the outcomes the gates read.  It takes no options: numbers
+of two commits compare only under this one protocol.  It refuses to run
+without CUDA; nothing is caught; exit code 1 on failure.
 """
-import argparse
 import json
 import math
 import subprocess
@@ -187,10 +188,13 @@ def run_protocol(workload, device, batch=256, steps=None, reps=3,
     same start states and generator seed and ended by a device
     synchronization.  Unicycle: `value` is batch x steps
     over the MEAN of the timed walls (bench.py:85-104); pendulum: over
-    their BEST (bench.py:260-284).  Raises RuntimeError when two rollouts'
-    outcomes or launch counts differ.  Returns the JSON record; `rollouts`
-    holds every rollout's wall, launches and outcomes, the last output is
-    under "out" (dropped by `json_line`)."""
+    their BEST (bench.py:260-284); `walls_spread` is (max - min) / mean of
+    the timed walls.  Raises RuntimeError when two rollouts' outcomes,
+    launch counts or accepted rungs differ.  Returns the JSON record;
+    `rollouts` holds every rollout's wall, launches, accepted rungs
+    (`MVGP.refresh_cache.rungs`: episodes per rung of the cache refreshes'
+    jitter ladder, first / + 1e-5 scale / + 1e-2 scale) and outcomes, the
+    last output is under "out" (dropped by `json_line`)."""
     if workload not in WORKLOADS:
         raise ValueError(f"unknown workload {workload!r}; one of {WORKLOADS}")
     dev = torch.device(device)
@@ -211,6 +215,7 @@ def run_protocol(workload, device, batch=256, steps=None, reps=3,
         x0s, seed = pendulum_x0s(dev, batch, dtype), 5
         lrn, run, read = sim.learned, run_pendulum_online_batch, \
             pendulum_outcomes
+    from bayesian_cbf_tpu_torch.models.mvgp import MVGP
     T = sim.numSteps
     fns = counters()
     rollouts = []
@@ -218,22 +223,24 @@ def run_protocol(workload, device, batch=256, steps=None, reps=3,
         gen = torch.Generator(device=dev).manual_seed(seed)
         for fn in fns.values():
             fn.launches = 0
+        MVGP.refresh_cache.rungs = None
         _sync(dev)
         t0 = time.perf_counter()
         out = run(sim, x0s, generator=gen)
         _sync(dev)
         wall = time.perf_counter() - t0
+        rungs = MVGP.refresh_cache.rungs
         rollouts.append(dict(
             wall_s=wall, launches={k: fn.launches for k, fn in fns.items()},
+            refresh_rungs=[0, 0, 0] if rungs is None else rungs.tolist(),
             outcomes=read(sim, out)))
     first, timed = rollouts[0], rollouts[1:]
+    same = ("outcomes", "launches", "refresh_rungs")
     for r in timed:
-        if (r["outcomes"] != first["outcomes"]
-                or r["launches"] != first["launches"]):
+        if any(r[k] != first[k] for k in same):
             raise RuntimeError(
                 f"{workload}: two rollouts of the same inputs differ: "
-                f"{first['outcomes']} {first['launches']} against "
-                f"{r['outcomes']} {r['launches']}")
+                f"{[first[k] for k in same]} against {[r[k] for k in same]}")
     walls = [r["wall_s"] for r in timed]
     if workload == "unicycle":
         metric = ("unicycle Bayes-CBF control steps/sec (online MVGP + CBC "
@@ -246,8 +253,9 @@ def run_protocol(workload, device, batch=256, steps=None, reps=3,
         how, reduce = f"best of {reps} after a first run", min
     if walls:
         wall = reduce(walls)
+        spread = (max(walls) - min(walls)) * len(walls) / sum(walls)
     else:
-        how, wall = "the first rollout alone", first["wall_s"]
+        how, wall, spread = "the first rollout alone", first["wall_s"], None
     ctrl = getattr(sim.controller, "warm_start", False)
     return dict(
         workload=workload, metric=metric, value=batch * T / wall,
@@ -259,7 +267,8 @@ def run_protocol(workload, device, batch=256, steps=None, reps=3,
         training_iter_warm=lrn.training_iter_warm,
         first_fit_coarse_stride=lrn.first_fit_coarse_stride,
         config=config, wall_s_per_batch=wall, wall_is=how, walls_s=walls,
-        first_wall_s=first["wall_s"], launches=first["launches"],
+        walls_spread=spread, first_wall_s=first["wall_s"],
+        launches=first["launches"], refresh_rungs=first["refresh_rungs"],
         outcomes=first["outcomes"],
         gate_failures=gate_failures(workload, first["outcomes"],
                                     lrn.continuous_updates),
@@ -273,17 +282,12 @@ def json_line(record):
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--batch", type=int, default=256)
-    args = ap.parse_args()
     dev, card = require_card("bench_torch")
     from bayesian_cbf_tpu_torch.ops import _build
     _build.build_all(_build.KERNEL_SOURCES)
     failed = []
     for workload in WORKLOADS:
-        record = run_protocol(workload, dev, batch=args.batch, reps=args.reps,
-                              card=card)
+        record = run_protocol(workload, dev, card=card)
         print(json_line(record), flush=True)
         failed += [f"{workload}: {text}" for text in record["gate_failures"]]
     if failed:

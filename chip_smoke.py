@@ -43,7 +43,6 @@ Phases (each raises on failure; nothing is caught):
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
-import contextlib
 import json
 import time
 
@@ -956,80 +955,10 @@ EARLIER_OUTCOMES = {
 }
 
 
-@contextlib.contextmanager
-def _refresh_grams(into):
-    """While active, append to `into` (a list, or None for no recording)
-    the masked Gram of every cache refresh: the input of the first of the
-    three factorizations of `MVGP.refresh_cache`'s jitter ladder.  Only for
-    runs whose fit does not factor through `chol_inv_fwd` as well (the
-    default fit inverse)."""
-    if into is None:
-        yield
-        return
-    from bayesian_cbf_tpu_torch.ops import cholinv
-    inner, calls = cholinv.chol_inv_fwd, [0]
-
-    def recording(K, assembly="kernel"):
-        if calls[0] % 3 == 0:
-            into.append(K)
-        calls[0] += 1
-        return inner(K, assembly)
-
-    cholinv.chol_inv_fwd = recording
-    try:
-        yield
-    finally:
-        cholinv.chol_inv_fwd = inner
-
-
-def _rung_counts(grams, fn):
-    """Episodes per accepted rung (first, + 1e-5 scale, + 1e-2 scale) of
-    `MVGP.refresh_cache`'s jitter ladder over the refresh Grams `grams`,
-    were K -> (L, L^{-1}) computed by `fn`: a rung is accepted when L and
-    L^{-1} are finite and max|L^{-1}| < 1e6."""
-    counts = [0, 0, 0]
-    for K in grams:
-        eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
-        scale = torch.clamp(torch.diagonal(K, dim1=-2, dim2=-1).abs()
-                            .mean(-1), min=1.0)[:, None, None]
-        sane = lambda L, Linv: (torch.isfinite(L).all(-1).all(-1)
-                                & torch.isfinite(Linv).all(-1).all(-1)
-                                & (Linv.abs().amax((-2, -1)) < 1e6))
-        ok = sane(*fn(K))
-        bump = torch.where(ok[:, None, None], torch.zeros_like(scale),
-                           1e-5 * scale)
-        ok2 = ok | sane(*fn(K + bump * eye))
-        counts[0] += int(ok.sum())
-        counts[1] += int((ok2 & ~ok).sum())
-        counts[2] += int((~ok2).sum())
-    return counts
-
-
-def _print_rungs(label, grams):
-    """The accepted rungs of the run's cache refreshes under the kernel and
-    under the plain version, on the run's own refresh Grams."""
-    from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
-    rungs = dict(kernel=_rung_counts(grams, ck.chol_linv),
-                 plain=_rung_counts(grams, ck.chol_linv_plain))
-    print(f"[{label}] {len(grams)} cache refreshes, episodes per accepted "
-          f"rung (first / + 1e-5 scale / + 1e-2 scale): {rungs}; the kernel "
-          f"before the rebuild on the same Grams: "
-          f"{EARLIER_RUNGS.get(label, 'not counted')}", flush=True)
-    return rungs
-
-
-# The same counts under kernel 2 as it was before the rebuild (one column
-# at a time), on the refresh Grams of these runs, NVIDIA H100 80GB HBM3 at
-# 700 W (probe_chol_linv.py --earlier-csrc).
-EARLIER_RUNGS = {"main": [1024, 0, 0],
-                 "pendulum continuous": [512, 0, 0],
-                 "pendulum reference schedule": [6144, 0, 0]}
-
-
 def _check_rollouts(label, record, warm_start):
     """Print the cold (first) and the warm (second, same inputs) wall of a
     protocol record and hold every rollout's launch counts to the
-    schedule's."""
+    schedule's, and its accepted rungs to one per episode and refresh."""
     sim = record["sim"]
     lrn = getattr(sim, "learned_dynamics", None) or sim.learned
     B, T = record["batch"], record["episode_steps"]
@@ -1041,25 +970,29 @@ def _check_rollouts(label, record, warm_start):
         line += (f"; warm wall (the same inputs again) {w:.3f} s, "
                  f"{B * T / w:.1f} steps/s, {w * 1e3 / T:.3f} ms per step")
     print(f"{line} (fits included) on {record['card']}", flush=True)
-    print(f"[{label}] launches {record['launches']}", flush=True)
+    print(f"[{label}] launches {record['launches']}; episodes per accepted "
+          f"rung of the cache refreshes' jitter ladder (first / + 1e-5 scale "
+          f"/ + 1e-2 scale) {record['refresh_rungs']}", flush=True)
     want = _expected_launches(lrn, T, warm_start)
+    refreshes = len(range(lrn.train_every_n_steps, T,
+                          lrn.train_every_n_steps))
     for r in record["rollouts"]:
         _require(r["launches"] == want,
                  f"{label}: launch counts {r['launches']} != {want}")
+        _require(sum(r["refresh_rungs"]) == B * refreshes,
+                 f"{label}: accepted rungs {r['refresh_rungs']} do not add "
+                 f"up to {B} episodes x {refreshes} cache refreshes")
 
 
-def run_config(dev, card, label, reps=0, grams=None, **gp_options):
+def run_config(dev, card, label, reps=0, **gp_options):
     """Rollouts of the flagship batch with the MVGP options through
     bench_torch's protocol (a cold one, then `reps` warm ones of the same
     inputs, with equal outcomes or it raises); launch counts, finiteness,
-    moved hyperparameters and the outcome gate.  grams: a list that
-    receives the refresh Grams of the cold rollout."""
+    moved hyperparameters and the outcome gate.  Returns the launch
+    counts, the accepted rungs and the last output."""
     print(f"[{label}] {gp_options or 'default MVGP'}", flush=True)
-    with _refresh_grams(grams):
-        record = bt.run_protocol("unicycle", dev, reps=reps, card=card,
-                                 gp_options=gp_options)
-    if grams:
-        del grams[len(grams) // (1 + reps):]
+    record = bt.run_protocol("unicycle", dev, reps=reps, card=card,
+                             gp_options=gp_options)
     sim, out = record["sim"], record["out"]
     _check_rollouts(label, record, sim.controller.warm_start)
     ls = out.knl.lengthscale
@@ -1077,7 +1010,7 @@ def run_config(dev, card, label, reps=0, grams=None, **gp_options):
     _require(not record["gate_failures"],
              f"{label}: batched-learning outcome gate failed: "
              f"{record['gate_failures']}")
-    return record["launches"], out
+    return record["launches"], record["refresh_rungs"], out
 
 
 def _adam_device_ms(gp, data, iters=5):
@@ -1128,19 +1061,17 @@ def phase_fit_timing(dev, out, configs):
     return ms
 
 
-def run_pendulum(dev, card, label, grams):
+def run_pendulum(dev, card, label):
     """The pendulum batch in a configuration of bench_torch's
     PENDULUM_CONFIGS through its protocol (a cold rollout, then a warm one
     of the same inputs, with equal outcomes or it raises): launch counts,
     finiteness, the outcome gates of scripts/check_outcomes.py
     (pendulum_batched_safe and pendulum_batched_cu_safe, with feasible >=
-    0.95 for both).  grams: a list that receives the refresh Grams of the
-    cold rollout."""
+    0.95 for both).  Returns the launch counts, the accepted rungs and
+    the walls with the outcomes."""
     tag = f"pendulum {label}"
     print(f"[{tag}] {bt.PENDULUM_CONFIGS[label]}", flush=True)
-    with _refresh_grams(grams):
-        record = bt.run_protocol(tag, dev, reps=1, card=card)
-    del grams[len(grams) // 2:]
+    record = bt.run_protocol(tag, dev, reps=1, card=card)
     _check_rollouts(tag, record, warm_start=False)
     gates = record["outcomes"]
     print(f"[{tag}] outcomes {gates}", flush=True)
@@ -1150,7 +1081,7 @@ def run_pendulum(dev, card, label, grams):
              f"{tag}: outcome gate failed: {record['gate_failures']}")
     B, T = record["batch"], record["episode_steps"]
     cold, warm_s = record["first_wall_s"], record["walls_s"][0]
-    return record["launches"], dict(
+    return record["launches"], record["refresh_rungs"], dict(
         wall_s=cold, steps_per_s=B * T / cold, warm_wall_s=warm_s,
         warm_steps_per_s=B * T / warm_s, **gates)
 
@@ -1276,22 +1207,20 @@ def main():
     sweep = _check_sweep_kernel(dev)
     dinv = _check_chol_dinv_kernel(dev)
     solve = _check_cholsolve_kernels(dev)
-    grams = []
-    main_path, out = run_config(dev, card, "main", reps=1, grams=grams)
-    rungs = {"main": _print_rungs("main", grams)}
+    main_path, main_rungs, out = run_config(dev, card, "main", reps=1)
     configs = dict(main={}, a=dict(fit_inverse="chol", linv_assembly="row"),
                    b=dict(fit_inverse="sweep_full"), c=dict(fused_gram=True))
-    runs = {k: run_config(dev, card, f"config {k}", **configs[k])[0]
-            for k in "abc"}
+    abc = {k: run_config(dev, card, f"config {k}", **configs[k])
+           for k in "abc"}
+    runs = {k: v[0] for k, v in abc.items()}
     phase_fit_timing(dev, out, configs)
-    pend = {}
-    for label in bt.PENDULUM_CONFIGS:
-        grams = []
-        pend[label] = run_pendulum(dev, card, label, grams)
-        rungs[f"pendulum {label}"] = _print_rungs(f"pendulum {label}", grams)
-    del grams
-    chol["chol_linv"]["accepted_rungs"] = rungs
+    pend = {label: run_pendulum(dev, card, label)
+            for label in bt.PENDULUM_CONFIGS}
     runs.update({f"pendulum {k}": v[0] for k, v in pend.items()})
+    # (a) refreshes through kernel 8 and the "row" assembly, not kernel 2
+    chol["chol_linv"]["accepted_rungs"] = {
+        "main": main_rungs, "b": abc["b"][1], "c": abc["c"][1],
+        **{f"pendulum {k}": v[1] for k, v in pend.items()}}
     profile_stats = phase_pendulum_profile(dev, px0s)
 
     def entry(name, source, replaces, run, stats, counter=None):
@@ -1319,7 +1248,7 @@ def main():
         entry("solve_with_factor", "cholsolve.cu", "pallas_chol.py:284",
               "main", solve["solve_with_factor"]),
     ]
-    print(json.dumps({"pendulum": {k: v[1] for k, v in pend.items()},
+    print(json.dumps({"pendulum": {k: v[2] for k, v in pend.items()},
                       "pendulum_profile": profile_stats}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

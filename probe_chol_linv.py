@@ -39,8 +39,8 @@ import numpy as np
 import torch
 
 import bench_torch as bt
-from chip_smoke import (_cuda_ms, _refresh_grams, _require, _rung_counts,
-                        _spd, _trajectory_grams, phase_device)
+from chip_smoke import (_cuda_ms, _require, _spd, _trajectory_grams,
+                        phase_device)
 from probe_kinv_logdet import LADDER, _nvcc, _wait
 
 NBS = (8, 16, 32)
@@ -115,6 +115,9 @@ def earlier_libs(csrc: Path):
             if hasattr(libs[k], fn) and "chol_linv" not in fn:
                 getattr(libs[k], fn).argtypes = argtypes
                 getattr(libs[k], fn).restype = ctypes.c_int
+    # the wrappers ask the library by today's name
+    libs["chol"].chol_matrix_in_smem = libs["chol"].kinv_logdet_uses_smem
+    libs["chol"].chol_matrix_in_smem.argtypes = [ctypes.c_int] * 2
     return libs
 
 
@@ -214,14 +217,56 @@ def ladder(dev, routes):
             print(line, flush=True)
 
 
+@contextlib.contextmanager
+def refresh_grams(into):
+    """While active, append to the list `into` the masked Gram of every
+    cache refresh: the argument of `MVGP.factor_ladder`."""
+    from bayesian_cbf_tpu_torch.models.mvgp import MVGP
+    inner = MVGP.factor_ladder
+
+    def recording(self, K):
+        into.append(K)
+        return inner(self, K)
+
+    MVGP.factor_ladder = recording
+    try:
+        yield
+    finally:
+        MVGP.factor_ladder = inner
+
+
+@contextlib.contextmanager
+def refreshing_through(fn):
+    """While active, the "kernel" assembly of `cholinv.chol_inv_fwd`, which
+    the refresh's ladder factors through, computes K -> (L, L^{-1}) by
+    `fn`."""
+    from bayesian_cbf_tpu_torch.ops import cholinv
+    kept = cholinv.chol_linv
+    cholinv.chol_linv = fn
+    try:
+        yield
+    finally:
+        cholinv.chol_linv = kept
+
+
 def rungs(dev, card, routes):
+    from bayesian_cbf_tpu_torch.ops.chol_kernels import LINV_NB
     runs = [("main", "unicycle")] + [(f"pendulum {k}", f"pendulum {k}")
                                      for k in bt.PENDULUM_CONFIGS]
     for label, workload in runs:
         grams = []
-        with _refresh_grams(grams):
+        with refresh_grams(grams):
             record = bt.run_protocol(workload, dev, reps=0, card=card)
-        counts = {name: _rung_counts(grams, fn) for name, fn in routes.items()}
+        sim = record["sim"]
+        gp = (getattr(sim, "learned_dynamics", None) or sim.learned).gp
+        counts = {}
+        for name, fn in routes.items():
+            with refreshing_through(fn):
+                counts[name] = sum(gp.factor_ladder(K)[2]
+                                   for K in grams).tolist()
+        _require(counts[f"nb {LINV_NB}"] == record["refresh_rungs"],
+                 f"{label}: the run counted {record['refresh_rungs']}, its "
+                 f"Grams give {counts}")
         print(f"[rungs] {label}: {len(grams)} cache refreshes of "
               f"{record['batch']} episodes (outcomes {record['outcomes']}); "
               f"episodes per accepted rung (first / + 1e-5 scale / + 1e-2 "

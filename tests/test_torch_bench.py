@@ -35,8 +35,9 @@ def record(request):
 
 def test_record_has_bench_fields_and_the_ports_own(record):
     line = json.loads(bt.json_line(record))
-    for field in BENCH_FIELDS + ("card", "walls_s", "first_wall_s",
-                                 "launches", "outcomes", "gate_failures"):
+    for field in BENCH_FIELDS + ("card", "walls_s", "walls_spread",
+                                 "first_wall_s", "launches", "refresh_rungs",
+                                 "outcomes", "gate_failures"):
         assert field in line
     assert "vs_baseline" not in line and "mfu" not in line
     assert line["platform"] == "cpu" and line["unit"] == "steps/sec"
@@ -56,6 +57,8 @@ def test_first_rollout_is_not_in_the_reported_wall(record):
     assert record["value"] == pytest.approx(2 * steps / want)
     assert ("mean" if record["workload"] == "unicycle" else "best") \
         in record["wall_is"]
+    assert record["walls_spread"] == pytest.approx(
+        (max(walls) - min(walls)) / (sum(walls) / 2))
 
 
 def test_rollouts_of_one_workload_repeat_their_outcomes(record):
@@ -69,6 +72,19 @@ def test_no_kernel_is_launched_on_the_cpu(record):
     assert set(record["launches"]) == set(bt.counters())
     assert all(r["launches"][k] == 0 for r in record["rollouts"]
                for k in r["launches"])
+
+
+def test_every_rollout_counts_a_rung_per_episode_and_refresh(record):
+    """`refresh_rungs` is `MVGP.refresh_cache.rungs` of one rollout: every
+    cache refresh adds each of the 2 episodes to the rung it accepted, and
+    these well-conditioned f64 Grams all take the first."""
+    steps, every = (TINY[record["workload"]][k]
+                    for k in ("steps", "train_every_n_steps"))
+    refreshes = len(range(every, steps, every))
+    assert refreshes == 2
+    for r in record["rollouts"]:
+        assert r["refresh_rungs"] == [2 * refreshes, 0, 0]
+    assert record["refresh_rungs"] == [2 * refreshes, 0, 0]
 
 
 def test_pendulum_record_carries_its_configuration(record):

@@ -146,6 +146,45 @@ def test_refresh_ladder_rejects_garbage_factor():
     assert float(cache.Linv.abs().max()) < 1e12
 
 
+def _ladder_batch(k=6):
+    """Three Grams, one for each rung: SPD; singular (all ones: + 1e-5
+    factors); one eigenvalue at -1e-3 (only + 1e-2 factors)."""
+    eye, ones = torch.eye(k, dtype=F64), torch.ones((k, k), dtype=F64)
+    return torch.stack([2.0 * eye + 0.1 * ones, ones, ones - 1e-3 * eye])
+
+
+@pytest.mark.parametrize("assembly", ["kernel", "row"])
+def test_factor_ladder_reports_the_rung_each_episode_accepted(assembly):
+    gp = make_mvgp_rank1(3, 2, linv_assembly=assembly)
+    K = _ladder_batch()
+    L, Linv, rungs = gp.factor_ladder(torch.cat([K, K[:1]]))
+    assert rungs.tolist() == [2, 1, 1]
+    assert torch.isfinite(L).all() and torch.isfinite(Linv).all()
+    eye = torch.eye(K.shape[-1], dtype=F64)
+    bumps = torch.tensor([0.0, 1e-5, 1e-5 + 1e-2, 0.0], dtype=F64)
+    want = torch.cat([K, K[:1]]) + bumps[:, None, None] * eye
+    assert torch.allclose(L @ L.transpose(-1, -2), want, atol=1e-12)
+    assert torch.allclose(Linv @ L, eye.expand_as(L), atol=1e-6)
+
+
+def test_refresh_cache_adds_its_rungs_to_the_count():
+    from bayesian_cbf_tpu_torch.models.mvgp import MVGP
+    eps, ps, data_np, params_np = _case(5)
+    params = interop.mvgp_params_from_numpy(params_np, "cpu", F64)
+    data = _torch_data(data_np)
+    MVGP.refresh_cache.rungs = None
+    make_mvgp_rank1(3, 2).refresh_cache(params, data)
+    assert MVGP.refresh_cache.rungs.tolist() == [B, 0, 0]
+    data_np = {k: v.copy() for k, v in data_np.items()}
+    data_np["X"][0, 1] = data_np["X"][0, 0]
+    data_np["UH"][0, 1] = data_np["UH"][0, 0]
+    make_mvgp_rank1(3, 2, jitter=-1e-3).refresh_cache(
+        params, _torch_data(data_np))
+    seen = MVGP.refresh_cache.rungs.tolist()
+    assert sum(seen) == 2 * B and seen[0] < 2 * B
+    MVGP.refresh_cache.rungs = None
+
+
 def test_f32_fit_moves_hyperparameters_on_trajectory_data():
     """The f32 fit on a real-looking trajectory buffer (consecutive states
     dt apart: a near-singular Gram) must move the hyperparameters; a NaN
