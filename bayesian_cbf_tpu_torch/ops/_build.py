@@ -102,8 +102,13 @@ def ptxas_usage(name: str) -> list:
     build of `name`, read from its ptxas report: a list of dicts with the
     keys kernel (its name with its integer template arguments),
     registers, stack_bytes, spill_store_bytes and spill_load_bytes."""
+    return parse_ptxas_usage(ptxas_report(name))
+
+
+def parse_ptxas_usage(report: str) -> list:
+    """`ptxas_usage` of any `-Xptxas -v` report."""
     out = []
-    for line in ptxas_report(name).splitlines():
+    for line in report.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             m = re.search(r"([a-z_]+_kernel)(?:I((?:Li\d+E)+)E)?",
@@ -139,6 +144,8 @@ _SIGNATURES = {
     "sweep": {
         "sweep_uses_smem": [_INT, _INT],
         "sweep_launch": [_VP] * 4 + [_INT, _VP] + [_INT] * 3 + [_VP],
+        "sweep_regs_limit": [_INT],
+        "sweep_regs_launch": [_VP] * 3 + [_INT] * 3 + [_VP],
     },
     "chol_blocked": {
         "chol_dinv_uses_smem": [_INT, _INT],

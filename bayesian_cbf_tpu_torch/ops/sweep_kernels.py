@@ -3,7 +3,13 @@ symmetric-sweep base blocks (csrc/sweep.cu), and its plain version.
 
 `batched_kinv_logdet(K, base)` -> (K^{-1}, logdet K) for a batch K
 (B, n, n) of positive definite matrices.  A CPU tensor takes the plain
-PyTorch version; a CUDA tensor launches the kernel or raises.
+PyTorch version; a CUDA tensor launches one of the two kernels of
+csrc/sweep.cu or raises.  `sweep_route` picks the kernel from the
+schedule's shape: a schedule that is one sweep of all n pivots with n
+within an instance's limit (the `"sweep_full"` fit inverse at n = 50 and
+200) runs `sweep_regs_kernel`, which holds the matrix in registers; every
+other schedule runs the event kernel `sweep_kernel`.  Both give the same
+bits on a one-sweep schedule.
 
 The recursion is that of the JAX package (`ops/pallas_sweep.py`): K is
 padded with an identity tail to N, the smallest multiple of `base` >= n,
@@ -27,6 +33,8 @@ The recursion is NON-FINITE on near-singular trajectory Grams (kappa
 `"sweep_full"` variant, which stays finite there.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -83,9 +91,42 @@ def schedule(n: int, base: int):
     return events
 
 
+# The largest n of each instance of csrc/sweep.cu's `sweep_regs_kernel`,
+# smallest first (`sweep_regs_limit` there returns the same).
+REGS_LIMITS = (64, 224)
+
+
+def sweep_route(n: int, events):
+    """Which kernel runs a schedule: ("regs", instance) for one SWEEP of
+    all n pivots with n within an instance's limit (the smallest that
+    holds it), else ("events", None)."""
+    if list(events) == [(SWEEP, 0, n, 0)]:
+        for instance, limit in enumerate(REGS_LIMITS):
+            if n <= limit:
+                return "regs", instance
+    return "events", None
+
+
+@functools.lru_cache(maxsize=None)
+def _route(n: int, base: int):
+    return sweep_route(n, schedule(n, base))
+
+
 def temp_size(events) -> int:
     """Floats of scratch per matrix: the largest h x rc panel."""
     return max([a * b for kind, o, a, b in events if kind != SWEEP] + [0])
+
+
+def _rank1_update(blk, col, srow):
+    """blk - col srow^T with one rounding per entry in f32, as the kernels'
+    FMA (and XLA's contraction of the TPU kernel's update) rounds it: the
+    product of two f32 values is exact in f64, so only the f64 sum is
+    rounded before f32 (twice only where that sum falls on a tie of f32).
+    Other dtypes round product and difference each."""
+    if blk.dtype != torch.float32:
+        return blk - col[:, :, None] * srow[:, None, :]
+    return (blk.double() - col.double()[:, :, None]
+            * srow.double()[:, None, :]).float()
 
 
 def _sweep_block(M, o, r, ld):
@@ -98,7 +139,7 @@ def _sweep_block(M, o, r, ld):
         ld += torch.log(d)
         srow = blk[:, p, :] * idv[:, None]
         col = blk[:, :, p].clone()
-        blk -= col[:, :, None] * srow[:, None, :]
+        blk.copy_(_rank1_update(blk, col, srow))
         blk[:, p, :] = srow
         blk[:, :, p] = col * idv[:, None]
         blk[:, p, p] = -idv
@@ -147,14 +188,9 @@ def _device_events(n, base, device):
     return got
 
 
-def batched_kinv_logdet(K: torch.Tensor, base: int = 0):
-    """(K^{-1}, logdet K) of a batch K (B, n, n).  Replaces the TPU kernel
-    `pallas_sweep.batched_kinv_logdet` (`_kernel` / `_inv_logdet` /
-    `_sweep_block`) on CUDA.  base=0 picks the size-dependent default."""
-    if K.device.type == "cpu":
-        return batched_kinv_logdet_plain(K, base)
+def _launch_events(K: torch.Tensor, base: int):
+    """`sweep_kernel` on the schedule of (n, base); no launch counted."""
     B, n = check_batch(K, "batched_kinv_logdet")
-    base = int(base) or pick_base(n)
     lib = _build.load("sweep")
     events, n_events, tsize = _device_events(n, base, K.device)
     Kinv = torch.empty_like(K)
@@ -168,8 +204,38 @@ def batched_kinv_logdet(K: torch.Tensor, base: int = 0):
         n_events, None if scratch is None else scratch.data_ptr(), B, n,
         tsize, torch.cuda.current_stream(K.device).cuda_stream)
     _build.check(rc, "sweep_launch")
-    batched_kinv_logdet.launches += 1
     return Kinv, logdet
+
+
+def _launch_regs(K: torch.Tensor, instance: int):
+    """`sweep_regs_kernel` (one sweep of all n pivots) through instance
+    `instance`; no launch counted."""
+    B, n = check_batch(K, "batched_kinv_logdet")
+    lib = _build.load("sweep")
+    Kinv = torch.empty_like(K)
+    logdet = torch.empty((B,), dtype=K.dtype, device=K.device)
+    rc = lib.sweep_regs_launch(
+        K.data_ptr(), Kinv.data_ptr(), logdet.data_ptr(), B, n, instance,
+        torch.cuda.current_stream(K.device).cuda_stream)
+    _build.check(rc, "sweep_regs_launch")
+    return Kinv, logdet
+
+
+def batched_kinv_logdet(K: torch.Tensor, base: int = 0):
+    """(K^{-1}, logdet K) of a batch K (B, n, n).  Replaces the TPU kernel
+    `pallas_sweep.batched_kinv_logdet` (`_kernel` / `_inv_logdet` /
+    `_sweep_block`) on CUDA.  base=0 picks the size-dependent default."""
+    if K.device.type == "cpu":
+        return batched_kinv_logdet_plain(K, base)
+    _, n = check_batch(K, "batched_kinv_logdet")
+    base = int(base) or pick_base(n)
+    kernel, instance = _route(n, base)
+    if kernel == "regs":
+        out = _launch_regs(K, instance)
+    else:
+        out = _launch_events(K, base)
+    batched_kinv_logdet.launches += 1
+    return out
 
 
 batched_kinv_logdet.launches = 0

@@ -17,12 +17,14 @@ Phases (each raises on failure; nothing is caught):
                  runs at both instantiations: (4, 4, 4) on the unicycle's
                  cones and (4, 3, 3) on the pendulum's, each also on 1003
                  random cones (no whole number of blocks).  The blocked
-                 factor's kernels (the fit inverse among them) and the IPM
-                 print their registers, stack and spill bytes beside their
-                 times; the fit inverse and the refresh factorization
-                 also their times and accuracy at other block sizes and
-                 beside the routes that compute the same through several
-                 launches.
+                 factor's kernels (the fit inverse among them), the IPM
+                 and both kernels of csrc/sweep.cu print their registers,
+                 stack and spill bytes beside their times; the fit inverse
+                 and the refresh factorization also their times and
+                 accuracy at other block sizes and beside the routes that
+                 compute the same through several launches; the one-sweep
+                 fit inverse's register kernel is held bit for bit to the
+                 event kernel at n = 200 and 50, and timed beside it.
   4. main     -- the batched unicycle learn-and-control loop (B=256
                  episodes, K=200, 2000 steps, bench.py's configuration)
                  through bench_torch.py's protocol: a cold rollout and a
@@ -673,7 +675,19 @@ def _check_gram_kernel(dev):
                 **bound)
 
 
+def _same_bits(got, want):
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
 def _check_sweep_kernel(dev):
+    """Kernel 5's two CUDA kernels: the register kernel of the one-sweep
+    route ("sweep_full" at n = 200 and 50) bit for bit against the event
+    kernel on the same schedule, with both kernels', plain's and inv_ex's
+    times and the bound at both orders, and each kernel's registers; the
+    fit-path bars on trajectory Grams, (4, 1024) on the event kernel; the
+    recursive route against plain."""
+    from bayesian_cbf_tpu_torch.ops import _build
     from bayesian_cbf_tpu_torch.ops import sweep_kernels as sk
     f64 = torch.float64
     for B, n in ((256, 200), (256, 50), (4, 1024)):
@@ -684,19 +698,72 @@ def _check_sweep_kernel(dev):
         ld64 = torch.linalg.slogdet(K64)[1]
         for name, fn in (("kernel", sk.batched_kinv_logdet),
                          ("plain", sk.batched_kinv_logdet_plain)):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
             Kinv, ld = fn(K, sk.full_base(n))
+            stop.record()
             torch.cuda.synchronize()
             finite = bool(torch.isfinite(Kinv).all() & torch.isfinite(ld).all())
             resid = float((Kinv.double() @ K64 - eye).abs().max())
             lderr = float((ld.double() - ld64).abs().max())
-            print(f"[sweep_full {name}] trajectory Grams B={B} n={n}: finite="
-                  f"{finite} max|Kinv K - I|={resid:.3e} logdet err="
-                  f"{lderr:.3e}", flush=True)
+            print(f"[sweep_full {name}] trajectory Grams B={B} n={n} "
+                  f"({sk.sweep_route(n, sk.schedule(n, sk.full_base(n)))[0]}"
+                  f" route): finite={finite} max|Kinv K - I|={resid:.3e} "
+                  f"logdet err={lderr:.3e}; {start.elapsed_time(stop):.3f} ms"
+                  f" (one launch)", flush=True)
             if name == "kernel":
                 _require(finite and lderr < 0.5,
                          f"sweep_full n={n}: finite {finite}, logdet {lderr}")
                 _require(n > 200 or resid < 5e-2,
                          f"sweep_full n={n}: resid {resid}")
+                if n == 1024:
+                    large_ms = start.elapsed_time(stop)
+    usage = {u["kernel"]: _usage("sweep", u["kernel"])
+             for u in _build.ptxas_usage("sweep")}
+    for kernel, u in usage.items():
+        print(f"[sweep] {kernel}: {_usage_text(u)}", flush=True)
+    regs = [u for k, u in usage.items() if k.startswith("sweep_regs_kernel")]
+    _require(len(regs) == len(sk.REGS_LIMITS)
+             and all(u["stack_bytes"] == 0 for u in regs),
+             "a register kernel instance keeps a stack frame")
+    one_sweep = {}
+    for n in (200, 50):
+        full = sk.full_base(n)
+        kernel, instance = sk.sweep_route(n, sk.schedule(n, full))
+        _require(kernel == "regs", f"n={n} does not take the register kernel")
+        S = torch.tensor(_spd(256, n, 2), dtype=torch.float32, device=dev)
+        T = torch.tensor(_trajectory_grams(256, n, seed=11),
+                         dtype=torch.float32, device=dev)
+        same = {name: _same_bits(sk._launch_regs(K, instance),
+                                 sk._launch_events(K, full))
+                for name, K in (("SPD", S), ("trajectory", T))}
+        got = sk.batched_kinv_logdet(T, full)
+        want = sk.batched_kinv_logdet_plain(T, full)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        rel = max(float((g - w).abs().max() / w.abs().max())
+                  for g, w in zip(got, want))
+        ms = _cuda_ms(lambda: sk.batched_kinv_logdet(T, full), 20)
+        events_ms = _cuda_ms(lambda: sk._launch_events(T, full), 5)
+        plain_ms = _cuda_ms(lambda: sk.batched_kinv_logdet_plain(T, full), 5)
+        # K^{-1} only: no single call also returns the logdet
+        library_ms = _cuda_ms(lambda: torch.linalg.inv_ex(T), 20)
+        # the same function as kernel 1, bounded as a Cholesky route does it
+        bound = _kinv_logdet_bound(256, n)
+        print(f"[sweep] (256, {n}) one sweep: register kernel (instance "
+              f"{instance}) {ms:.4f} ms, event kernel {events_ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); bits equal "
+              f"to the event kernel's {same}; trajectory Grams vs plain: max "
+              f"abs err {err:.3e}, relative {rel:.3e}", flush=True)
+        _require(all(same.values()),
+                 f"n={n}: the register kernel's bits differ from the event "
+                 f"kernel's: {same}")
+        _require(rel < 1e-4, f"sweep_full n={n} disagrees with plain: {rel}")
+        one_sweep[n] = dict(max_abs_err=err, ms=ms, events_ms=events_ms,
+                            plain_ms=plain_ms, library_ms=library_ms,
+                            bits_equal=same, **bound)
     S = torch.tensor(_spd(256, 200, 2), dtype=torch.float32, device=dev)
     got = sk.batched_kinv_logdet(S)
     want = sk.batched_kinv_logdet_plain(S)
@@ -719,22 +786,14 @@ def _check_sweep_kernel(dev):
                      & torch.isfinite(ld))).sum())
         print(f"[sweep recursive {name}] trajectory Grams (256, 200): {bad} "
               f"of 256 episodes non-finite", flush=True)
-    full = sk.full_base(200)
-    ms = _cuda_ms(lambda: sk.batched_kinv_logdet(T, full), 20)
-    plain_ms = _cuda_ms(lambda: sk.batched_kinv_logdet_plain(T, full), 5)
     rec_ms = _cuda_ms(lambda: sk.batched_kinv_logdet(S), 20)
     rec_plain_ms = _cuda_ms(lambda: sk.batched_kinv_logdet_plain(S), 5)
-    # K^{-1} only: no single call also returns the logdet
-    library_ms = _cuda_ms(lambda: torch.linalg.inv_ex(T), 20)
-    # the same function as kernel 1, bounded as a Cholesky route does it
-    bound = _kinv_logdet_bound(256, 200)
-    print(f"[sweep] (256, 200): sweep_full kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); recursive "
-          f"kernel {rec_ms:.3f} ms, plain {rec_plain_ms:.3f} ms", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, **bound,
-                recursive_ms=rec_ms, recursive_plain_ms=rec_plain_ms)
+    print(f"[sweep] recursive (256, 200): kernel {rec_ms:.3f} ms, plain "
+          f"{rec_plain_ms:.3f} ms; one sweep (4, 1024) on the event kernel "
+          f"{large_ms:.3f} ms", flush=True)
+    return dict(**one_sweep[200], n50=one_sweep[50], usage=usage,
+                recursive_ms=rec_ms, recursive_plain_ms=rec_plain_ms,
+                events_4x1024_ms=large_ms)
 
 
 def _check_chol_dinv_kernel(dev):

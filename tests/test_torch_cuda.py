@@ -262,10 +262,13 @@ def _rel(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,base", [(9, 0), (33, 0), (200, 0), (214, 0),
-                                    (215, 0), (300, 0), (50, 256),
-                                    (200, 256), (240, 256)])
+                                    (215, 0), (300, 0), (1, 256), (17, 256),
+                                    (50, 256), (64, 256), (65, 256),
+                                    (200, 256), (224, 256), (225, 256),
+                                    (240, 256)])
 def test_sweep_kernel_matches_plain(cuda, n, base):
-    """Both sides of the shared-memory limit, recursive and one-sweep;
+    """Both sides of the shared-memory limit, recursive and one-sweep, and
+    both sides of each limit of the register kernel's instances (64, 224);
     well-conditioned SPD in f32: relative agreement 1e-4, and both within
     1e-3 of the f64 inverse."""
     K = torch.tensor(_spd(6, n, n), dtype=torch.float32, device=cuda)
@@ -278,6 +281,83 @@ def test_sweep_kernel_matches_plain(cuda, n, base):
     assert _rel(got[0].double(), exact) < 1e-3
     assert float((got[1].double() - torch.linalg.slogdet(K.double())[1])
                  .abs().max()) < 1e-3
+
+
+def _bits(x):
+    """The float32 tensor's bits, NaNs as one pattern (a NaN's payload is
+    not part of what the kernels compute)."""
+    return torch.where(torch.isnan(x), torch.nan, x).view(torch.int32)
+
+
+def _same_bits(got, want):
+    return all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_sweep_regs_instances_match_the_wrapper_table(cuda):
+    from bayesian_cbf_tpu_torch.ops import _build
+    lib = _build.load("sweep")
+    limits = tuple(lib.sweep_regs_limit(i) for i in range(len(sk.REGS_LIMITS)))
+    assert limits == sk.REGS_LIMITS
+    assert lib.sweep_regs_limit(len(sk.REGS_LIMITS)) == 0
+    K = torch.eye(65, device=cuda)[None].contiguous()
+    with pytest.raises(RuntimeError):
+        sk._launch_regs(K, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["spd", "trajectory"])
+@pytest.mark.parametrize("n", [50, 200])
+def test_sweep_regs_kernel_gives_the_event_kernels_bits(cuda, n, kind):
+    """The one-sweep route's two kernels do the same arithmetic element for
+    element: inverse and logdet equal bit for bit at the fit's (256, n)."""
+    K = _spd(256, n, n) if kind == "spd" else _trajectory_grams(256, n, n + 5)
+    K = torch.tensor(K, dtype=torch.float32, device=cuda)
+    full = sk.full_base(n)
+    kernel, instance = sk.sweep_route(n, sk.schedule(n, full))
+    assert kernel == "regs"
+    got = sk._launch_regs(K, instance)
+    want = sk._launch_events(K, full)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got[0]).all())
+    assert _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [50, 200])
+def test_sweep_regs_nan_stays_in_its_matrix_and_floors_as_before(cuda, n):
+    """A NaN pivot stays NaN in its matrix only; a zero and a negative
+    first pivot are floored at 1e-12 as the event kernel floors them: every
+    matrix's bits equal the event kernel's, and the clean ones a run
+    without the bad ones."""
+    S = torch.tensor(_spd(4, n, n), dtype=torch.float32, device=cuda)
+    full = sk.full_base(n)
+    clean = sk.batched_kinv_logdet(S, full)
+    S[1, 0, 0] = float("nan")
+    S[2, 0, 0] = 0.0
+    S[3, 0, 0] = -1.0
+    got = sk.batched_kinv_logdet(S, full)
+    want = sk._launch_events(S, full)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(got[1][1]))
+    assert not bool(torch.isfinite(got[0][1]).any())
+    assert _same_bits(got, want)
+    assert torch.equal(got[0][0], clean[0][0])
+    assert torch.equal(got[1][0], clean[1][0])
+
+
+@pytest.mark.cuda
+def test_sweep_regs_same_bits_twice(cuda):
+    """No atomics and one fixed order of every sum: two launches on the
+    same input give the same bits, one count each."""
+    K = torch.tensor(_trajectory_grams(300, 200, 9), dtype=torch.float32,
+                     device=cuda)
+    before = sk.batched_kinv_logdet.launches
+    first = sk.batched_kinv_logdet(K, sk.full_base(200))
+    again = sk.batched_kinv_logdet(K, sk.full_base(200))
+    torch.cuda.synchronize()
+    assert sk.batched_kinv_logdet.launches == before + 2
+    assert _same_bits(first, again)
 
 
 @pytest.mark.cuda
