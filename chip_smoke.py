@@ -142,6 +142,22 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def _device_ms(fn, name, reps):
+    """Device time per call of fn() spent in kernels whose name holds
+    `name`, from torch.profiler: a kernel's own time where the host's
+    launches are slower than the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and name in e.name) / 1e3 / reps
+
+
 def _trajectory_grams(B, k, seed, step=0.02, nug=2.5e-4):
     """Random-walk RBF Grams: the conditioning of real fit buffers."""
     rng = np.random.default_rng(seed)
@@ -698,11 +714,7 @@ def _check_sweep_kernel(dev):
         ld64 = torch.linalg.slogdet(K64)[1]
         for name, fn in (("kernel", sk.batched_kinv_logdet),
                          ("plain", sk.batched_kinv_logdet_plain)):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
             Kinv, ld = fn(K, sk.full_base(n))
-            stop.record()
             torch.cuda.synchronize()
             finite = bool(torch.isfinite(Kinv).all() & torch.isfinite(ld).all())
             resid = float((Kinv.double() @ K64 - eye).abs().max())
@@ -710,15 +722,15 @@ def _check_sweep_kernel(dev):
             print(f"[sweep_full {name}] trajectory Grams B={B} n={n} "
                   f"({sk.sweep_route(n, sk.schedule(n, sk.full_base(n)))[0]}"
                   f" route): finite={finite} max|Kinv K - I|={resid:.3e} "
-                  f"logdet err={lderr:.3e}; {start.elapsed_time(stop):.3f} ms"
-                  f" (one launch)", flush=True)
+                  f"logdet err={lderr:.3e}", flush=True)
             if name == "kernel":
                 _require(finite and lderr < 0.5,
                          f"sweep_full n={n}: finite {finite}, logdet {lderr}")
                 _require(n > 200 or resid < 5e-2,
                          f"sweep_full n={n}: resid {resid}")
-                if n == 1024:
-                    large_ms = start.elapsed_time(stop)
+    # K is the (4, 1024) batch: one sweep there runs on the event kernel
+    large_ms = _cuda_ms(lambda: sk.batched_kinv_logdet(K, sk.full_base(1024)),
+                        1)
     usage = {u["kernel"]: _usage("sweep", u["kernel"])
              for u in _build.ptxas_usage("sweep")}
     for kernel, u in usage.items():
@@ -745,6 +757,8 @@ def _check_sweep_kernel(dev):
         rel = max(float((g - w).abs().max() / w.abs().max())
                   for g, w in zip(got, want))
         ms = _cuda_ms(lambda: sk.batched_kinv_logdet(T, full), 20)
+        device_ms = _device_ms(lambda: sk._launch_regs(T, instance),
+                               "sweep_regs_kernel", 20)
         events_ms = _cuda_ms(lambda: sk._launch_events(T, full), 5)
         plain_ms = _cuda_ms(lambda: sk.batched_kinv_logdet_plain(T, full), 5)
         # K^{-1} only: no single call also returns the logdet
@@ -752,7 +766,8 @@ def _check_sweep_kernel(dev):
         # the same function as kernel 1, bounded as a Cholesky route does it
         bound = _kinv_logdet_bound(256, n)
         print(f"[sweep] (256, {n}) one sweep: register kernel (instance "
-              f"{instance}) {ms:.4f} ms, event kernel {events_ms:.4f} ms, "
+              f"{instance}) {ms:.4f} ms per call ({device_ms:.4f} ms of "
+              f"device time), event kernel {events_ms:.4f} ms, "
               f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
               f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); bits equal "
               f"to the event kernel's {same}; trajectory Grams vs plain: max "
@@ -761,7 +776,8 @@ def _check_sweep_kernel(dev):
                  f"n={n}: the register kernel's bits differ from the event "
                  f"kernel's: {same}")
         _require(rel < 1e-4, f"sweep_full n={n} disagrees with plain: {rel}")
-        one_sweep[n] = dict(max_abs_err=err, ms=ms, events_ms=events_ms,
+        one_sweep[n] = dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                            events_ms=events_ms,
                             plain_ms=plain_ms, library_ms=library_ms,
                             bits_equal=same, **bound)
     S = torch.tensor(_spd(256, 200, 2), dtype=torch.float32, device=dev)
