@@ -1,7 +1,8 @@
 // Fused masked MVGP Gram, batched, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel bayesian_cbf_tpu/ops/gram.py
-// `_gram_kernel` (`fused_gram_kb`):
+// `_gram_kernel` (`fused_gram_kb`), which builds one matrix per grid step
+// in one VMEM-resident block:
 //
 //   out[i][j] = s exp(-1/2 sum_a (Xs[i][a] - Xs[j][a])^2) (UHB[i] . UHB[j])
 //               m_i m_j + (1 - m_i) [i == j] + jitter m_i [i == j]
@@ -9,81 +10,384 @@
 // for Xs = X / lengthscale (K, n), UHB = UH chol(B) (K, 1+m), the row mask
 // m (K,) and the outputscale s.  Distances use the exact per-dimension
 // differences, never |a|^2 + |b|^2 - 2 a.b, which cancels in f32 for the
-// near-duplicate consecutive states of a training buffer.
+// near-duplicate consecutive states of a training buffer.  Each entry is
+// the same expression, in the same order, as in the kernel this one
+// replaced (the fmaf chains over a and c, s expf(-d2 / 2), then the
+// masks and the diagonal), so both give the same bits.
 //
-// What bounds it on the H100: writing the (B, K, K) output (41 MB at
-// B = 256, K = 200); each entry costs n + (1+m) multiply-adds and one exp.
-// The design gives each thread block a 32 x 32 output tile of one matrix:
-// the tile's 32 + 32 rows of Xs and UHB and their masks are staged in
-// shared memory (row stride 17, conflict-free), and a warp writes 32
-// consecutive entries of an output row (coalesced).
+// What bounds it on the H100: the bytes of the (B, K, K) output (41 MB at
+// B = 256, K = 200, against 0.4 MB of input): 12.7 us at 3.35 TB/s.  The
+// entries' arithmetic (n + 1+m multiply-adds, one expf, four multiplies:
+// ~40 instructions an entry with the loads and the loop) is of the same
+// order, so the design keeps the stores streaming, never waiting on a
+// load, and the arithmetic lean enough to run under them:
+//  - Persistent blocks.  A work item is one band of R consecutive rows of
+//    one matrix; the grid is at most the SMs times the blocks resident on
+//    each, and block g walks the items [g N / grid, (g+1) N / grid) in
+//    order (ops/gram.py `gram_plan` and `block_items` make the same cut).
+//  - Inputs staged once per matrix, ahead of need.  A block's items stay
+//    within one matrix while they can.  It copies that matrix's K rows of
+//    Xs, UHB and mask into shared memory with cp.async, and while it
+//    computes and stores matrix b the rows of matrix b + 1 arrive in the
+//    second buffer.  Shared memory holds each input column as four
+//    planes (column j at plane j % 4, index j / 4): a warp's 32 threads
+//    read 32 consecutive words of a plane (their 4-column chunks), and a
+//    row's values are one broadcast, so no read meets a bank conflict.
+//    Where two matrices do not fit (K (n + mh + 1) 4 bytes above 113 KB:
+//    K > 4150 at n = 1+m = 3, K > 880 at 16) one buffer is staged after
+//    the last item of the previous matrix; where one does not fit
+//    (K > 8300, K > 1760) the threads read the inputs from global memory
+//    (L1 and L2) instead.
+//  - Stores that stream.  A band of one matrix is R K 4 contiguous bytes.
+//    Each thread holds the inputs of its columns in registers and walks
+//    every G-th row of the band (G row groups share the block's 256
+//    threads), writing each 4-column chunk of a row with one 16-byte
+//    streaming store (__stcs of a float4); the 32 stores of a warp are
+//    one contiguous span.  Chunks follow the 16-byte alignment of each
+//    row's address, so a row whose start is not aligned (K % 4 != 0)
+//    begins and ends with a partial chunk written entry by entry; G is a
+//    multiple of 4 there, so that a thread's rows share one alignment.
+//  - Arithmetic that overlaps.  n = 1+m = 3 (the unicycle's Gram) has an
+//    instance whose loops have a fixed length and whose threads own two
+//    chunks each (8 entries a row: 8 independent chains, the row's inputs
+//    loaded once for both); the entries have no branch between them (the
+//    guards are selects, the diagonal is added after).  The instance for
+//    any other n, 1+m holds 16 inputs of 4 columns in registers (~215 of
+//    them: one block per SM), and is slower than the tile kernel it
+//    replaced at n = 1+m = 16 (PERF.md).
+// One bulk (TMA) store per band from shared memory was also built and
+// timed against these stores (probe_gram.py); see PERF.md.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kRowsPerPass = 8;
+constexpr int kThreads = 256;
 constexpr int kMaxDim = 16;
-constexpr int kStride = kMaxDim + 1;
+constexpr int kExactDim = 3;  // n = 1+m = 3 (the unicycle) has its own instance
 
-__global__ void __launch_bounds__(kTile * kRowsPerPass)
-gram_kernel(const float* __restrict__ Xs,    // (B, K, n)
-            const float* __restrict__ UHB,   // (B, K, mh)
-            const float* __restrict__ mask,  // (B, K)
-            const float* __restrict__ scale, // (B,) outputscale
-            float jitter, int K, int n, int mh,
-            float* __restrict__ out)         // (B, K, K)
-{
-    __shared__ float xi[kTile][kStride], xj[kTile][kStride];
-    __shared__ float ui[kTile][kStride], uj[kTile][kStride];
-    __shared__ float mi[kTile], mj[kTile];
-    const int b = blockIdx.z;
-    const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * kTile + tx;
-    const float* Xb = Xs + (size_t)b * K * n;
-    const float* Ub = UHB + (size_t)b * K * mh;
-    const float* mb = mask + (size_t)b * K;
+// An instance serves n = 1+m = N exactly (N > 0: loops of fixed length,
+// each thread owning P = 2 chunks of 4 columns) or any n, 1+m <= kMaxDim
+// (N = 0: loops of kMaxDim steps, each step past n or 1+m selected away;
+// P = 1, so that the columns' inputs stay in registers).
+template <int N>
+struct Dims {
+    static constexpr int D = N ? N : kMaxDim;
+    static constexpr int P = N ? 2 : 1;
+    static constexpr int W = 4 * P;  // columns of one thread
+    __device__ static bool on(int a, int n) { return N || a < n; }
+};
 
-    for (int t = tid; t < kTile * n; t += kTile * kRowsPerPass) {
-        const int r = t / n, a = t % n;
-        xi[r][a] = (i0 + r < K) ? Xb[(size_t)(i0 + r) * n + a] : 0.0f;
-        xj[r][a] = (j0 + r < K) ? Xb[(size_t)(j0 + r) * n + a] : 0.0f;
-    }
-    for (int t = tid; t < kTile * mh; t += kTile * kRowsPerPass) {
-        const int r = t / mh, c = t % mh;
-        ui[r][c] = (i0 + r < K) ? Ub[(size_t)(i0 + r) * mh + c] : 0.0f;
-        uj[r][c] = (j0 + r < K) ? Ub[(size_t)(j0 + r) * mh + c] : 0.0f;
-    }
-    if (tid < kTile) {
-        mi[tid] = (i0 + tid < K) ? mb[i0 + tid] : 0.0f;
-        mj[tid] = (j0 + tid < K) ? mb[j0 + tid] : 0.0f;
-    }
-    __syncthreads();
+struct GramArgs {
+    const float* Xs;     // (B, K, n)
+    const float* U;      // (B, K, mh)
+    const float* mask;   // (B, K)
+    const float* scale;  // (B,) outputscale
+    float* out;          // (B, K, K)
+    float jitter;
+    int K, n, mh;
+    int R;      // rows per band
+    int G;      // row groups of a band
+    int bands;  // bands per matrix, ceil(K / R)
+    int items;  // B * bands
+    int nbuf;   // staging buffers: 2, 1 (or 0: inputs read from global)
+};
 
-    const int j = j0 + tx;
-    if (j >= K) return;
-    const float s = scale[b];
-    float* ob = out + (size_t)b * K * K;
-    for (int r = ty; r < kTile; r += kRowsPerPass) {
-        const int i = i0 + r;
-        if (i >= K) break;
+// Floats of one staged matrix: n + mh + 1 inputs x 4 planes of ceil(K / 4).
+__host__ __device__ inline int staged_floats(int K, int n, int mh) {
+    return (n + mh + 1) * 4 * ((K + 3) / 4);
+}
+
+// Column chunks of 4 columns in a band row, aligned to the row's address:
+// a misaligned row (K % 4 != 0) has a partial chunk at each end.
+__device__ inline int row_chunks(int K, const float* out) {
+    const bool aligned = K % 4 == 0 && ((uintptr_t)out & 15) == 0;
+    return (K + (aligned ? 0 : 3) + 3) / 4;
+}
+
+__device__ inline void cp_async4(float* dst, const float* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ inline void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ inline void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Input p of column j in a staged matrix (p < n: Xs, then mh of UHB, then
+// the mask): plane j % 4 of input p, index j / 4, so that the threads of a
+// warp, which own consecutive chunks, read consecutive words.
+__device__ inline int slot(int p, int j, int Kq) {
+    return (p * 4 + (j & 3)) * Kq + (j >> 2);
+}
+
+// Start copying matrix b's inputs into `buf` (one cp.async group).
+__device__ void stage(const GramArgs& g, int b, float* buf) {
+    const int K = g.K, n = g.n, mh = g.mh, Kq = (K + 3) / 4;
+    const float* X = g.Xs + (size_t)b * K * n;
+    const float* U = g.U + (size_t)b * K * mh;
+    const float* M = g.mask + (size_t)b * K;
+    for (int e = threadIdx.x; e < K * n; e += kThreads) {
+        const int j = e / n;
+        cp_async4(buf + slot(e - j * n, j, Kq), X + e);
+    }
+    for (int e = threadIdx.x; e < K * mh; e += kThreads) {
+        const int j = e / mh;
+        cp_async4(buf + slot(n + e - j * mh, j, Kq), U + e);
+    }
+    for (int j = threadIdx.x; j < K; j += kThreads)
+        cp_async4(buf + slot(n + mh, j, Kq), M + j);
+    cp_async_commit();
+}
+
+// Where a matrix's inputs are read from: its staged copy, or global memory.
+struct Staged {
+    const float* buf;
+    int Kq, n, mh;
+    __device__ float x(int a, int j) const { return buf[slot(a, j, Kq)]; }
+    __device__ float u(int c, int j) const { return buf[slot(n + c, j, Kq)]; }
+    __device__ float m(int j) const { return buf[slot(n + mh, j, Kq)]; }
+};
+
+struct Global {
+    const float* X;
+    const float* U;
+    const float* M;
+    int n, mh;
+    __device__ float x(int a, int j) const { return __ldg(X + j * n + a); }
+    __device__ float u(int c, int j) const { return __ldg(U + j * mh + c); }
+    __device__ float m(int j) const { return __ldg(M + j); }
+};
+
+// The inputs of the thread's columns, 4 from each of its P chunks, the
+// chunk p starting at j0[p] (zeros outside [0, K)), held in registers.
+template <int N>
+struct Cols {
+    static constexpr int D = Dims<N>::D, W = Dims<N>::W;
+    float x[D][W], u[D][W], m[W];
+
+    template <class Src>
+    __device__ void load(const Src& src, const int* j0, int K, int n,
+                         int mh) {
+#pragma unroll
+        for (int q = 0; q < W; ++q) {
+            const int j = j0[q / 4] + q % 4;
+            const bool in = j >= 0 && j < K;
+#pragma unroll
+            for (int a = 0; a < D; ++a) {
+                x[a][q] = (in && Dims<N>::on(a, n)) ? src.x(a, j) : 0.0f;
+                u[a][q] = (in && Dims<N>::on(a, mh)) ? src.u(a, j) : 0.0f;
+            }
+            m[q] = in ? src.m(j) : 0.0f;
+        }
+    }
+};
+
+// The inputs of row i.
+template <int N>
+struct Row {
+    static constexpr int D = Dims<N>::D;
+    float x[D], u[D], m;
+
+    template <class Src>
+    __device__ void load(const Src& src, int i, int n, int mh) {
+#pragma unroll
+        for (int a = 0; a < D; ++a) {
+            x[a] = Dims<N>::on(a, n) ? src.x(a, i) : 0.0f;
+            u[a] = Dims<N>::on(a, mh) ? src.u(a, i) : 0.0f;
+        }
+        m = src.m(i);
+    }
+};
+
+// Entries of row i in the thread's W columns: the replaced kernel's
+// expression, in its order; the diagonal is added by the caller.  No
+// branch: the guards are selects, so that the W entries' chains
+// interleave.
+template <int N>
+__device__ inline void entries(const Row<N>& r, const Cols<N>& c, int n,
+                               int mh, float s, float* v) {
+    constexpr int D = Dims<N>::D;
+#pragma unroll
+    for (int q = 0; q < Dims<N>::W; ++q) {
         float d2 = 0.0f;
-        for (int a = 0; a < n; ++a) {
-            const float diff = xi[r][a] - xj[tx][a];
-            d2 = fmaf(diff, diff, d2);
+#pragma unroll
+        for (int a = 0; a < D; ++a) {
+            const float diff = r.x[a] - c.x[a][q];
+            const float next = fmaf(diff, diff, d2);
+            d2 = Dims<N>::on(a, n) ? next : d2;
         }
         float ubu = 0.0f;
-        for (int c = 0; c < mh; ++c) ubu = fmaf(ui[r][c], uj[tx][c], ubu);
-        const float rbf = s * expf(-0.5f * d2);
-        float v = rbf * ubu * (mi[r] * mj[tx]);
-        if (i == j) {
-            v = v + (1.0f - mi[r]);
-            v = v + jitter * mi[r];
+#pragma unroll
+        for (int a = 0; a < D; ++a) {
+            const float next = fmaf(r.u[a], c.u[a][q], ubu);
+            ubu = Dims<N>::on(a, mh) ? next : ubu;
         }
-        ob[(size_t)i * K + j] = v;
+        const float rbf = s * expf(-0.5f * d2);
+        v[q] = rbf * ubu * (r.m * c.m[q]);
     }
+}
+
+// Rows i0 .. i0 + rows - 1 of one matrix (output `ob`), each thread's 4
+// entries of a chunk written with one 16-byte streaming store.  A row's
+// nch chunks of 4 columns are split into P parts: thread c of a row group
+// owns chunks c, c + nh, ... (nh = ceil(nch / P)), so that each of its
+// stores meets its neighbours' in one span.
+template <int N, class Src>
+__device__ void band(const GramArgs& g, const Src& src, float s, float* ob,
+                     int i0, int rows) {
+    constexpr int P = Dims<N>::P, W = Dims<N>::W;
+    const int K = g.K, n = g.n, mh = g.mh, G = g.G;
+    const int nch = row_chunks(K, g.out), nh = (nch + P - 1) / P;
+    for (int t = threadIdx.x; t < G * nh; t += kThreads) {
+        const int grp = t / nh, chunk = t - grp * nh;
+        Cols<N> c;
+        int cached = -1;  // the alignment the columns were loaded for
+        for (int r = grp; r < rows; r += G) {
+            const int i = i0 + r;
+            float* row = ob + (size_t)i * K;
+            const int h = (int)((uintptr_t)row >> 2) & 3;  // floats past 16 B
+            int j0[P];
+#pragma unroll
+            for (int p = 0; p < P; ++p) j0[p] = 4 * (chunk + p * nh) - h;
+            if (j0[0] >= K) continue;
+            if (h != cached) {
+                c.load(src, j0, K, n, mh);
+                cached = h;
+            }
+            Row<N> ri;
+            ri.load(src, i, n, mh);
+            float v[W];
+            entries<N>(ri, c, n, mh, s, v);
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+                const int dq = i - j0[p];  // the diagonal's place
+                if ((unsigned)dq < 4u) {
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) {
+                        if (q == dq) {
+                            float& e = v[4 * p + q];
+                            e = e + (1.0f - ri.m);
+                            e = e + g.jitter * ri.m;
+                        }
+                    }
+                }
+                float* dst = row + j0[p];
+                const float* w = v + 4 * p;
+                if (j0[p] >= 0 && j0[p] + 4 <= K) {
+                    __stcs(reinterpret_cast<float4*>(dst),
+                           make_float4(w[0], w[1], w[2], w[3]));
+                } else {
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+                        if (j0[p] + q >= 0 && j0[p] + q < K)
+                            __stcs(dst + q, w[q]);
+                }
+            }
+        }
+    }
+}
+
+// Block g's items [g N / grid, (g + 1) N / grid), N = g.items; item it is
+// rows [(it % bands) R, + R) of matrix it / bands.
+__device__ inline int first_item(int block, int grid, int items) {
+    return (int)((long long)block * items / grid);
+}
+
+// N: Dims; kStaged: the inputs from the staged copy, else from global
+// memory.
+template <int N, bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+gram_kernel(const GramArgs g) {
+    extern __shared__ __align__(16) float smem[];
+    const int it1 = first_item(blockIdx.x + 1, gridDim.x, g.items);
+    int it = first_item(blockIdx.x, gridDim.x, g.items);
+    const int per = staged_floats(g.K, g.n, g.mh);
+    int cur = 0;
+    if (kStaged && it < it1) stage(g, it / g.bands, smem);
+    while (it < it1) {
+        const int b = it / g.bands;
+        const int end = min(it1, (b + 1) * g.bands);
+        const bool next = end < it1;
+        if (kStaged) {
+            if (next && g.nbuf == 2) {
+                stage(g, b + 1, smem + (cur ^ 1) * per);
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncthreads();
+        }
+        const float s = g.scale[b];
+        float* ob = g.out + (size_t)b * g.K * g.K;
+        for (; it < end; ++it) {
+            const int i0 = (it - b * g.bands) * g.R;
+            const int rows = min(g.R, g.K - i0);
+            if (kStaged) {
+                band<N>(g, Staged{smem + cur * per, (g.K + 3) / 4, g.n, g.mh},
+                        s, ob, i0, rows);
+            } else {
+                band<N>(g, Global{g.Xs + (size_t)b * g.K * g.n,
+                                  g.U + (size_t)b * g.K * g.mh,
+                                  g.mask + (size_t)b * g.K, g.n, g.mh},
+                        s, ob, i0, rows);
+            }
+        }
+        if (kStaged) {
+            __syncthreads();  // every thread is done with buffer `cur`
+            if (g.nbuf == 2)
+                cur ^= 1;
+            else if (next)
+                stage(g, b + 1, smem);
+        }
+    }
+}
+
+typedef void (*GramKernel)(const GramArgs);
+
+int max_smem_bytes() {
+    int dev = 0, bytes = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    return bytes;
+}
+
+bool exact(int n, int mh) { return n == kExactDim && mh == kExactDim; }
+
+// The kernel, its staging buffers and its dynamic shared memory for
+// (K, n, mh): two staging buffers where they fit, else one, else none
+// (inputs read from global memory); -1 buffers if (n, mh) is out of range.
+struct Config {
+    GramKernel kernel;
+    int nbuf;
+    size_t smem;
+};
+
+Config config(int K, int n, int mh) {
+    if (K < 1 || n < 1 || n > kMaxDim || mh < 1 || mh > kMaxDim)
+        return Config{nullptr, -1, 0};
+    const size_t per = (size_t)staged_floats(K, n, mh) * sizeof(float);
+    const size_t room = (size_t)max_smem_bytes();
+    const int nbuf = 2 * per <= room ? 2 : per <= room ? 1 : 0;
+    // [staged][n == 1+m == kExactDim]
+    const GramKernel kernels[2][2] = {
+        {gram_kernel<0, false>, gram_kernel<kExactDim, false>},
+        {gram_kernel<0, true>, gram_kernel<kExactDim, true>}};
+    return Config{kernels[nbuf > 0][exact(n, mh)], nbuf, nbuf * per};
+}
+
+int set_smem(const Config& c) {
+    return (int)cudaFuncSetAttribute((const void*)c.kernel,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)c.smem);
 }
 
 }  // namespace
@@ -91,16 +395,42 @@ gram_kernel(const float* __restrict__ Xs,    // (B, K, n)
 // ---- host launchers (plain C interface, loaded with ctypes) ----
 extern "C" {
 
+// Chunks of 4 columns that one thread owns in a row for (n, mh): the
+// wrapper's cut into items (ops/gram.py `gram_plan`) needs it.
+int gram_thread_chunks(int n, int mh) {
+    return exact(n, mh) ? Dims<kExactDim>::P : Dims<0>::P;
+}
+
+// Thread blocks of 256 threads that one SM holds at once for (K, n, mh),
+// or -1 if (n, mh) is out of range (1 <= n, mh <= 16): the wrapper's cut
+// into items (ops/gram.py `gram_plan`) needs it.
+int gram_blocks_per_sm(int K, int n, int mh) {
+    const Config c = config(K, n, mh);
+    if (c.nbuf < 0) return -1;
+    if (set_smem(c) != 0) return -1;
+    int blocks = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, c.kernel,
+                                                      kThreads, c.smem))
+        return -1;
+    return blocks;
+}
+
 // The masked Gram (B, K, K) of Xs (B, K, n), UHB (B, K, mh), mask (B, K),
-// outputscale (B,); all f32, contiguous; 1 <= n, mh <= 16.
+// outputscale (B,); all f32, contiguous; 1 <= n, mh <= 16.  `grid`
+// persistent blocks of 256 threads walk bands of R rows, each band's rows
+// in G groups (ops/gram.py `gram_plan`).
 int gram_launch(const float* Xs, const float* UHB, const float* mask,
                 const float* outputscale, float jitter, float* out, int B,
-                int K, int n, int mh, void* stream) {
-    if (n < 1 || n > kMaxDim || mh < 1 || mh > kMaxDim) return -1;
-    const int tiles = (K + kTile - 1) / kTile;
-    dim3 grid(tiles, tiles, B), block(kTile, kRowsPerPass);
-    gram_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        Xs, UHB, mask, outputscale, jitter, K, n, mh, out);
+                int K, int n, int mh, int R, int G, int grid, void* stream) {
+    const Config c = config(K, n, mh);
+    if (c.nbuf < 0 || B < 1 || R < 1 || G < 1 || grid < 1) return -1;
+    const int bands = (K + R - 1) / R;
+    if ((long long)B * bands > 0x7fffffff || grid > B * bands) return -1;
+    const GramArgs g{Xs, UHB, mask, outputscale, out, jitter, K, n, mh,
+                     R, G, bands, B * bands, c.nbuf};
+    const int err = set_smem(c);
+    if (err != 0) return err;
+    c.kernel<<<grid, kThreads, c.smem, (cudaStream_t)stream>>>(g);
     return (int)cudaGetLastError();
 }
 

@@ -100,7 +100,8 @@ def ptxas_report(name: str) -> str:
 def ptxas_usage(name: str) -> list:
     """Registers, stack and spill bytes of each kernel in the current
     build of `name`, read from its ptxas report: a list of dicts with the
-    keys kernel (its name with its integer template arguments),
+    keys kernel (its name with its integer and bool template arguments,
+    a bool as 0 or 1),
     registers, stack_bytes, spill_store_bytes and spill_load_bytes."""
     return parse_ptxas_usage(ptxas_report(name))
 
@@ -111,9 +112,9 @@ def parse_ptxas_usage(report: str) -> list:
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"([a-z_]+_kernel)(?:I((?:Li\d+E)+)E)?",
+            m = re.search(r"([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?",
                           entry.group(1))
-            targs = re.findall(r"Li(\d+)E", m.group(2) or "") if m else []
+            targs = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m else []
             kernel = (m.group(1) if m else entry.group(1)) + (
                 f"<{', '.join(targs)}>" if targs else "")
             out.append(dict(kernel=kernel, registers=None, stack_bytes=0,
@@ -157,7 +158,9 @@ _SIGNATURES = {
         "solve_with_factor_launch": [_VP] * 5 + [_INT] * 5 + [_VP],
     },
     "gram": {
-        "gram_launch": [_VP] * 4 + [_F32, _VP] + [_INT] * 4 + [_VP],
+        "gram_thread_chunks": [_INT] * 2,
+        "gram_blocks_per_sm": [_INT] * 3,
+        "gram_launch": [_VP] * 4 + [_F32, _VP] + [_INT] * 7 + [_VP],
     },
 }
 KERNEL_SOURCES = tuple(_SIGNATURES)

@@ -15,6 +15,48 @@ import torch
 from . import _build
 
 MAX_DIM = 16
+THREADS = 256          # threads of one block of csrc/gram.cu
+ROWS_PER_THREAD = 8    # rows of a band that one thread makes
+
+
+def row_chunks(K: int) -> int:
+    """Chunks of 4 columns in one output row, aligned to the row's
+    16-byte alignment: a misaligned row (K % 4 != 0) has a partial chunk
+    at each end."""
+    return -(-(K + (0 if K % 4 == 0 else 3)) // 4)
+
+
+def band_rows(K: int, P: int, rows_per_thread: int = ROWS_PER_THREAD):
+    """(R, G): the rows R of a band, in G groups of threads that own P
+    chunks each (G a multiple of 4 where rows are misaligned, so that a
+    thread's rows share their alignment), each thread making
+    `rows_per_thread` rows."""
+    G = max(1, THREADS // -(-row_chunks(K) // P))
+    if K % 4 and G >= 4:
+        G -= G % 4
+    return min(K, G * rows_per_thread), G
+
+
+def gram_plan(B: int, K: int, P: int, sms: int, per_sm: int,
+              rows_per_thread: int = ROWS_PER_THREAD):
+    """The kernel's cut into work items: (R, G, grid).  An item is a band
+    of R consecutive rows of one matrix (`band_rows`); `grid` persistent
+    blocks, at most `sms` x `per_sm`, walk the B ceil(K / R) items as
+    `block_items` cuts them."""
+    R, G = band_rows(K, P, rows_per_thread)
+    items = B * -(-K // R)
+    return R, G, max(1, min(items, sms * per_sm))
+
+
+def block_items(block: int, grid: int, items: int) -> range:
+    """The items that block `block` of `grid` walks, in order."""
+    return range(block * items // grid, (block + 1) * items // grid)
+
+
+def item_rows(item: int, K: int, R: int):
+    """(matrix, rows) of one item."""
+    b, band = divmod(item, -(-K // R))
+    return b, range(band * R, min(band * R + R, K))
 
 
 def fused_gram_kb_plain(Xs, UHB_half, mask, outputscale, jitter: float):
@@ -28,6 +70,47 @@ def fused_gram_kb_plain(Xs, UHB_half, mask, outputscale, jitter: float):
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     return (K * outer + eye * (1.0 - mask)[:, :, None]
             + jitter * eye * mask[:, :, None])
+
+
+_SMS: dict = {}
+_SHAPES: dict = {}
+
+
+def _plan(device, B: int, K: int, n: int, mh: int, rows_per_thread: int):
+    """`gram_plan` for this device and shape: the SM count is read once per
+    device; the blocks one SM holds and the chunks each thread owns (the
+    kernel's instance for (n, 1+m)) once per shape."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index) \
+            .multi_processor_count
+    key = (index, K, n, mh)
+    if key not in _SHAPES:
+        lib = _build.load("gram")
+        with torch.cuda.device(index):
+            _SHAPES[key] = (lib.gram_blocks_per_sm(K, n, mh),
+                            lib.gram_thread_chunks(n, mh))
+        if _SHAPES[key][0] < 1:
+            raise RuntimeError(f"fused_gram_kb: no block of the kernel fits "
+                               f"for K={K}, n={n}, 1+m={mh}")
+    per_sm, P = _SHAPES[key]
+    return gram_plan(B, K, P, _SMS[index], per_sm, rows_per_thread)
+
+
+def _launch(Xs, UHB_half, mask, outputscale, jitter: float,
+            rows_per_thread: int = ROWS_PER_THREAD):
+    """One launch of the kernel on checked CUDA tensors, not counted."""
+    B, K, n = Xs.shape
+    mh = UHB_half.shape[-1]
+    R, G, grid = _plan(Xs.device, B, K, n, mh, rows_per_thread)
+    out = torch.empty((B, K, K), dtype=Xs.dtype, device=Xs.device)
+    rc = _build.load("gram").gram_launch(
+        Xs.data_ptr(), UHB_half.data_ptr(), mask.data_ptr(),
+        outputscale.data_ptr(), float(jitter), out.data_ptr(), B, K, n, mh,
+        R, G, grid, torch.cuda.current_stream(Xs.device).cuda_stream)
+    _build.check(rc, "gram_launch")
+    return out
 
 
 def fused_gram_kb(Xs, UHB_half, mask, outputscale, jitter: float):
@@ -51,13 +134,7 @@ def fused_gram_kb(Xs, UHB_half, mask, outputscale, jitter: float):
     if not (1 <= n <= MAX_DIM and 1 <= mh <= MAX_DIM and K >= 1):
         raise ValueError(f"fused_gram_kb: need 1 <= n, 1+m <= {MAX_DIM}, "
                          f"got n={n}, 1+m={mh}")
-    lib = _build.load("gram")
-    out = torch.empty((B, K, K), dtype=Xs.dtype, device=Xs.device)
-    rc = lib.gram_launch(Xs.data_ptr(), UHB_half.data_ptr(), mask.data_ptr(),
-                         outputscale.data_ptr(), float(jitter),
-                         out.data_ptr(), B, K, n, mh,
-                         torch.cuda.current_stream(Xs.device).cuda_stream)
-    _build.check(rc, "gram_launch")
+    out = _launch(Xs, UHB_half, mask, outputscale, jitter)
     fused_gram_kb.launches += 1
     return out
 

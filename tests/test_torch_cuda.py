@@ -447,20 +447,54 @@ def test_chol_dinv_passes_nan_through(cuda, n, nb):
         assert torch.equal(Dinv[b], clean[1][b])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,K,n,mh", [(1, 1, 1, 1), (3, 33, 3, 3),
-                                      (4, 200, 3, 3), (2, 70, 16, 16)])
-def test_gram_kernel_matches_plain(cuda, B, K, n, mh):
-    rng = np.random.default_rng(K)
+def _gram_args(cuda, B, K, n, mh, seed):
+    rng = np.random.default_rng(seed)
     args = [rng.normal(size=(B, K, n)), rng.normal(size=(B, K, mh)),
             (rng.uniform(size=(B, K)) > 0.5).astype(float),
             rng.uniform(0.5, 2.0, size=B)]
-    args = [torch.tensor(a, dtype=torch.float32, device=cuda) for a in args]
+    return [torch.tensor(a, dtype=torch.float32, device=cuda) for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,n,mh", [(1, 1, 1, 1), (3, 33, 3, 3),
+                                      (4, 200, 3, 3), (2, 70, 16, 16),
+                                      (5, 201, 3, 3), (5, 203, 3, 3),
+                                      (2, 1024, 16, 16), (1000, 200, 3, 3),
+                                      (1, 5000, 3, 3), (1, 9000, 3, 3),
+                                      (1, 2000, 16, 16)])
+def test_gram_kernel_matches_plain(cuda, B, K, n, mh):
+    """Also K % 4 != 0 (rows that start off 16-byte alignment: partial
+    chunks), B = 1000 (more items than resident blocks), one staging
+    buffer and not two (K = 5000 at n = 1+m = 3, K = 1024 at 16) and no
+    staged copy (inputs read from global memory: K = 9000 at 3, 2000 at
+    16), at both instances (n = 1+m = 3 and any other)."""
+    args = _gram_args(cuda, B, K, n, mh, K)
     got = gm.fused_gram_kb(*args, 1e-6)
     want = gm.fused_gram_kb_plain(*args, 1e-6)
     torch.cuda.synchronize()
     # f32, one exp and a few multiply-adds per entry: relative 1e-5
     assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.cuda
+def test_gram_same_bits_twice(cuda):
+    args = _gram_args(cuda, 300, 201, 3, 3, 9)
+    first = gm.fused_gram_kb(*args, 1e-6)
+    again = gm.fused_gram_kb(*args, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,n,mh", [(256, 200, 3, 3), (2, 1024, 16, 16),
+                                      (1, 2000, 16, 16)])
+def test_gram_rows_per_thread_give_the_same_bits(cuda, B, K, n, mh):
+    """The cut into items moves no bit: every entry is computed alone."""
+    args = _gram_args(cuda, B, K, n, mh, K + 1)
+    want = gm._launch(*args, 1e-6)
+    for r in (1, 2, 8):
+        got = gm._launch(*args, 1e-6, rows_per_thread=r)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def near_duplicate_case(B=4, k=40, seed=0):

@@ -185,6 +185,47 @@ def test_refresh_cache_fused_takes_the_bump_rung_like_jax(
                                    atol=1e-3 * np.abs(jL).max())
 
 
+@pytest.mark.parametrize("B", [1, 7, 256, 1000])
+@pytest.mark.parametrize("K", [1, 33, 200, 201, 1024])
+def test_gram_plan_covers_every_row_once(B, K):
+    """The kernel's cut into items (csrc/gram.cu walks the same ranges):
+    every row of every matrix in exactly one item of exactly one block, no
+    more blocks than the SMs hold, and every block with an item."""
+    for P, sms, per_sm in ((2, 132, 2), (1, 132, 1), (2, 5, 3)):
+        R, G, grid = gm.gram_plan(B, K, P, sms, per_sm)
+        assert 1 <= R <= K and 1 <= grid <= sms * per_sm
+        assert G * -(-gm.row_chunks(K) // P) <= gm.THREADS or G == 1
+        if K % 4 and G >= 4:
+            assert G % 4 == 0
+        items = B * -(-K // R)
+        count = np.zeros((B, K), dtype=int)
+        for block in range(grid):
+            walked = gm.block_items(block, grid, items)
+            assert len(walked) >= 1
+            for item in walked:
+                b, rows = gm.item_rows(item, K, R)
+                count[b, rows.start:rows.stop] += 1
+        assert (count == 1).all()
+
+
+def test_ptxas_usage_names_bool_template_arguments():
+    from bayesian_cbf_tpu_torch.ops import _build
+    report = (
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111gram_"
+        "kernelILi4ELb1EEEvNS_8GramArgsE' for 'sm_90a'\n"
+        "ptxas info    : Used 40 registers, 380 bytes cmem[0]\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111gram_"
+        "kernelILi16ELb0EEEvNS_8GramArgsE' for 'sm_90a'\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, 380 bytes cmem[0]\n")
+    assert _build.parse_ptxas_usage(report) == [
+        dict(kernel="gram_kernel<4, 1>", registers=40, stack_bytes=0,
+             spill_store_bytes=0, spill_load_bytes=0),
+        dict(kernel="gram_kernel<16, 0>", registers=168, stack_bytes=8,
+             spill_store_bytes=4, spill_load_bytes=4)]
+
+
 def test_cpu_tensors_take_the_plain_version():
     args = [torch.tensor(a, dtype=torch.float32) for a in _inputs(3)]
     before = gm.fused_gram_kb.launches
