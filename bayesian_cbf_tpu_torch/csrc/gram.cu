@@ -24,37 +24,33 @@
 //  - Persistent blocks.  A work item is one band of R consecutive rows of
 //    one matrix; the grid is at most the SMs times the blocks resident on
 //    each, and block g walks the items [g N / grid, (g+1) N / grid) in
-//    order (ops/gram.py `gram_plan` and `block_items` make the same cut).
-//  - Inputs staged once per matrix, ahead of need.  A block's items stay
-//    within one matrix while they can.  It copies that matrix's K rows of
-//    Xs, UHB and mask into shared memory with cp.async, and while it
-//    computes and stores matrix b the rows of matrix b + 1 arrive in the
-//    second buffer.  Shared memory holds each input column as four
-//    planes (column j at plane j % 4, index j / 4): a warp's 32 threads
-//    read 32 consecutive words of a plane (their 4-column chunks), and a
-//    row's values are one broadcast, so no read meets a bank conflict.
-//    Where two matrices do not fit (K (n + mh + 1) 4 bytes above 113 KB:
-//    K > 4150 at n = 1+m = 3, K > 880 at 16) one buffer is staged after
-//    the last item of the previous matrix; where one does not fit
-//    (K > 8300, K > 1760) the threads read the inputs from global memory
-//    (L1 and L2) instead.
+//    order (ops/gram.py `gram_plan` makes the cut).
+//  - Inputs read in place.  Each thread loads the inputs of its columns
+//    into registers once per band (through L1) and each row's inputs as it
+//    reaches the row (one broadcast load per value for the whole warp).
+//    The inputs are 0.4 MB against 41 MB of output, so they stay in L2 and
+//    no load stands in the way of a store.  Staging each matrix's inputs
+//    in shared memory with cp.async, double-buffered, was built and
+//    measured slower at every shape timed (PERF.md), so there is no
+//    size at which an input must be staged: any K runs.
 //  - Stores that stream.  A band of one matrix is R K 4 contiguous bytes.
-//    Each thread holds the inputs of its columns in registers and walks
-//    every G-th row of the band (G row groups share the block's 256
-//    threads), writing each 4-column chunk of a row with one 16-byte
-//    streaming store (__stcs of a float4); the 32 stores of a warp are
-//    one contiguous span.  Chunks follow the 16-byte alignment of each
+//    Each thread walks every G-th row of the band (G row groups share the
+//    block's 256 threads), writing each 4-column chunk of a row with one
+//    16-byte streaming store (__stcs of a float4); the 32 stores of a warp
+//    are one contiguous span.  Chunks follow the 16-byte alignment of each
 //    row's address, so a row whose start is not aligned (K % 4 != 0)
 //    begins and ends with a partial chunk written entry by entry; G is a
-//    multiple of 4 there, so that a thread's rows share one alignment.
-//  - Arithmetic that overlaps.  n = 1+m = 3 (the unicycle's Gram) has an
-//    instance whose loops have a fixed length and whose threads own two
-//    chunks each (8 entries a row: 8 independent chains, the row's inputs
-//    loaded once for both); the entries have no branch between them (the
-//    guards are selects, the diagonal is added after).  The instance for
-//    any other n, 1+m holds 16 inputs of 4 columns in registers (~215 of
-//    them: one block per SM), and is slower than the tile kernel it
-//    replaced at n = 1+m = 16 (PERF.md).
+//    multiple of 4 there where it can be, so that a thread's rows share
+//    one alignment (else it loads its columns again when it changes).
+//  - Arithmetic that overlaps.  n = 1+m = 3 (the unicycle's Gram) and
+//    n = 1+m = 2 (the pendulum's) have instances whose loops have a fixed
+//    length and whose threads own two chunks each (8 entries a row: 8
+//    independent chains, the row's inputs loaded once for both); the
+//    entries have no branch between them (the guards are selects, the
+//    diagonal is added after).  The instance for any other n, 1+m holds 16
+//    inputs of 4 columns in registers (~212 of them: one block per SM),
+//    and is slower than the tile kernel it replaced at every shape timed
+//    (PERF.md): no model of the repo runs it.
 // One bulk (TMA) store per band from shared memory was also built and
 // timed against these stores (probe_gram.py); see PERF.md.
 
@@ -65,7 +61,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxDim = 16;
-constexpr int kExactDim = 3;  // n = 1+m = 3 (the unicycle) has its own instance
 
 // An instance serves n = 1+m = N exactly (N > 0: loops of fixed length,
 // each thread owning P = 2 chunks of 4 columns) or any n, 1+m <= kMaxDim
@@ -91,13 +86,7 @@ struct GramArgs {
     int G;      // row groups of a band
     int bands;  // bands per matrix, ceil(K / R)
     int items;  // B * bands
-    int nbuf;   // staging buffers: 2, 1 (or 0: inputs read from global)
 };
-
-// Floats of one staged matrix: n + mh + 1 inputs x 4 planes of ceil(K / 4).
-__host__ __device__ inline int staged_floats(int K, int n, int mh) {
-    return (n + mh + 1) * 4 * ((K + 3) / 4);
-}
 
 // Column chunks of 4 columns in a band row, aligned to the row's address:
 // a misaligned row (K % 4 != 0) has a partial chunk at each end.
@@ -106,57 +95,8 @@ __device__ inline int row_chunks(int K, const float* out) {
     return (K + (aligned ? 0 : 3) + 3) / 4;
 }
 
-__device__ inline void cp_async4(float* dst, const float* src) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(s), "l"(src) : "memory");
-}
-
-__device__ inline void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ inline void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Input p of column j in a staged matrix (p < n: Xs, then mh of UHB, then
-// the mask): plane j % 4 of input p, index j / 4, so that the threads of a
-// warp, which own consecutive chunks, read consecutive words.
-__device__ inline int slot(int p, int j, int Kq) {
-    return (p * 4 + (j & 3)) * Kq + (j >> 2);
-}
-
-// Start copying matrix b's inputs into `buf` (one cp.async group).
-__device__ void stage(const GramArgs& g, int b, float* buf) {
-    const int K = g.K, n = g.n, mh = g.mh, Kq = (K + 3) / 4;
-    const float* X = g.Xs + (size_t)b * K * n;
-    const float* U = g.U + (size_t)b * K * mh;
-    const float* M = g.mask + (size_t)b * K;
-    for (int e = threadIdx.x; e < K * n; e += kThreads) {
-        const int j = e / n;
-        cp_async4(buf + slot(e - j * n, j, Kq), X + e);
-    }
-    for (int e = threadIdx.x; e < K * mh; e += kThreads) {
-        const int j = e / mh;
-        cp_async4(buf + slot(n + e - j * mh, j, Kq), U + e);
-    }
-    for (int j = threadIdx.x; j < K; j += kThreads)
-        cp_async4(buf + slot(n + mh, j, Kq), M + j);
-    cp_async_commit();
-}
-
-// Where a matrix's inputs are read from: its staged copy, or global memory.
-struct Staged {
-    const float* buf;
-    int Kq, n, mh;
-    __device__ float x(int a, int j) const { return buf[slot(a, j, Kq)]; }
-    __device__ float u(int c, int j) const { return buf[slot(n + c, j, Kq)]; }
-    __device__ float m(int j) const { return buf[slot(n + mh, j, Kq)]; }
-};
-
-struct Global {
+// One matrix's inputs, read through L1.
+struct Matrix {
     const float* X;
     const float* U;
     const float* M;
@@ -173,17 +113,15 @@ struct Cols {
     static constexpr int D = Dims<N>::D, W = Dims<N>::W;
     float x[D][W], u[D][W], m[W];
 
-    template <class Src>
-    __device__ void load(const Src& src, const int* j0, int K, int n,
-                         int mh) {
+    __device__ void load(const Matrix& src, const int* j0, int K) {
 #pragma unroll
         for (int q = 0; q < W; ++q) {
             const int j = j0[q / 4] + q % 4;
             const bool in = j >= 0 && j < K;
 #pragma unroll
             for (int a = 0; a < D; ++a) {
-                x[a][q] = (in && Dims<N>::on(a, n)) ? src.x(a, j) : 0.0f;
-                u[a][q] = (in && Dims<N>::on(a, mh)) ? src.u(a, j) : 0.0f;
+                x[a][q] = (in && Dims<N>::on(a, src.n)) ? src.x(a, j) : 0.0f;
+                u[a][q] = (in && Dims<N>::on(a, src.mh)) ? src.u(a, j) : 0.0f;
             }
             m[q] = in ? src.m(j) : 0.0f;
         }
@@ -196,12 +134,11 @@ struct Row {
     static constexpr int D = Dims<N>::D;
     float x[D], u[D], m;
 
-    template <class Src>
-    __device__ void load(const Src& src, int i, int n, int mh) {
+    __device__ void load(const Matrix& src, int i) {
 #pragma unroll
         for (int a = 0; a < D; ++a) {
-            x[a] = Dims<N>::on(a, n) ? src.x(a, i) : 0.0f;
-            u[a] = Dims<N>::on(a, mh) ? src.u(a, i) : 0.0f;
+            x[a] = Dims<N>::on(a, src.n) ? src.x(a, i) : 0.0f;
+            u[a] = Dims<N>::on(a, src.mh) ? src.u(a, i) : 0.0f;
         }
         m = src.m(i);
     }
@@ -240,9 +177,9 @@ __device__ inline void entries(const Row<N>& r, const Cols<N>& c, int n,
 // nch chunks of 4 columns are split into P parts: thread c of a row group
 // owns chunks c, c + nh, ... (nh = ceil(nch / P)), so that each of its
 // stores meets its neighbours' in one span.
-template <int N, class Src>
-__device__ void band(const GramArgs& g, const Src& src, float s, float* ob,
-                     int i0, int rows) {
+template <int N>
+__device__ void band(const GramArgs& g, const Matrix& src, float s,
+                     float* ob, int i0, int rows) {
     constexpr int P = Dims<N>::P, W = Dims<N>::W;
     const int K = g.K, n = g.n, mh = g.mh, G = g.G;
     const int nch = row_chunks(K, g.out), nh = (nch + P - 1) / P;
@@ -259,11 +196,11 @@ __device__ void band(const GramArgs& g, const Src& src, float s, float* ob,
             for (int p = 0; p < P; ++p) j0[p] = 4 * (chunk + p * nh) - h;
             if (j0[0] >= K) continue;
             if (h != cached) {
-                c.load(src, j0, K, n, mh);
+                c.load(src, j0, K);
                 cached = h;
             }
             Row<N> ri;
-            ri.load(src, i, n, mh);
+            ri.load(src, i);
             float v[W];
             entries<N>(ri, c, n, mh, s, v);
 #pragma unroll
@@ -301,93 +238,42 @@ __device__ inline int first_item(int block, int grid, int items) {
     return (int)((long long)block * items / grid);
 }
 
-// N: Dims; kStaged: the inputs from the staged copy, else from global
-// memory.
-template <int N, bool kStaged>
-__global__ void __launch_bounds__(kThreads)
-gram_kernel(const GramArgs g) {
-    extern __shared__ __align__(16) float smem[];
-    const int it1 = first_item(blockIdx.x + 1, gridDim.x, g.items);
-    int it = first_item(blockIdx.x, gridDim.x, g.items);
-    const int per = staged_floats(g.K, g.n, g.mh);
-    int cur = 0;
-    if (kStaged && it < it1) stage(g, it / g.bands, smem);
-    while (it < it1) {
+// N: Dims.
+template <int N>
+__global__ void __launch_bounds__(kThreads) gram_kernel(const GramArgs g) {
+    const int last = first_item(blockIdx.x + 1, gridDim.x, g.items);
+    for (int it = first_item(blockIdx.x, gridDim.x, g.items); it < last;
+         ++it) {
         const int b = it / g.bands;
-        const int end = min(it1, (b + 1) * g.bands);
-        const bool next = end < it1;
-        if (kStaged) {
-            if (next && g.nbuf == 2) {
-                stage(g, b + 1, smem + (cur ^ 1) * per);
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
-            }
-            __syncthreads();
-        }
-        const float s = g.scale[b];
-        float* ob = g.out + (size_t)b * g.K * g.K;
-        for (; it < end; ++it) {
-            const int i0 = (it - b * g.bands) * g.R;
-            const int rows = min(g.R, g.K - i0);
-            if (kStaged) {
-                band<N>(g, Staged{smem + cur * per, (g.K + 3) / 4, g.n, g.mh},
-                        s, ob, i0, rows);
-            } else {
-                band<N>(g, Global{g.Xs + (size_t)b * g.K * g.n,
-                                  g.U + (size_t)b * g.K * g.mh,
-                                  g.mask + (size_t)b * g.K, g.n, g.mh},
-                        s, ob, i0, rows);
-            }
-        }
-        if (kStaged) {
-            __syncthreads();  // every thread is done with buffer `cur`
-            if (g.nbuf == 2)
-                cur ^= 1;
-            else if (next)
-                stage(g, b + 1, smem);
-        }
+        const int i0 = (it - b * g.bands) * g.R;
+        const Matrix src{g.Xs + (size_t)b * g.K * g.n,
+                         g.U + (size_t)b * g.K * g.mh,
+                         g.mask + (size_t)b * g.K, g.n, g.mh};
+        band<N>(g, src, g.scale[b], g.out + (size_t)b * g.K * g.K, i0,
+                min(g.R, g.K - i0));
     }
 }
 
 typedef void (*GramKernel)(const GramArgs);
 
-int max_smem_bytes() {
-    int dev = 0, bytes = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    return bytes;
-}
-
-bool exact(int n, int mh) { return n == kExactDim && mh == kExactDim; }
-
-// The kernel, its staging buffers and its dynamic shared memory for
-// (K, n, mh): two staging buffers where they fit, else one, else none
-// (inputs read from global memory); -1 buffers if (n, mh) is out of range.
-struct Config {
+// The instance for (n, mh) and the chunks each of its threads owns; no
+// kernel if (n, mh) is out of range.
+struct Instance {
     GramKernel kernel;
-    int nbuf;
-    size_t smem;
+    int P;
 };
 
-Config config(int K, int n, int mh) {
-    if (K < 1 || n < 1 || n > kMaxDim || mh < 1 || mh > kMaxDim)
-        return Config{nullptr, -1, 0};
-    const size_t per = (size_t)staged_floats(K, n, mh) * sizeof(float);
-    const size_t room = (size_t)max_smem_bytes();
-    const int nbuf = 2 * per <= room ? 2 : per <= room ? 1 : 0;
-    // [staged][n == 1+m == kExactDim]
-    const GramKernel kernels[2][2] = {
-        {gram_kernel<0, false>, gram_kernel<kExactDim, false>},
-        {gram_kernel<0, true>, gram_kernel<kExactDim, true>}};
-    return Config{kernels[nbuf > 0][exact(n, mh)], nbuf, nbuf * per};
+template <int N>
+Instance instance() {
+    return Instance{gram_kernel<N>, Dims<N>::P};
 }
 
-int set_smem(const Config& c) {
-    return (int)cudaFuncSetAttribute((const void*)c.kernel,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)c.smem);
+Instance pick(int n, int mh) {
+    if (n < 1 || n > kMaxDim || mh < 1 || mh > kMaxDim)
+        return Instance{nullptr, 0};
+    if (n == mh && n == 3) return instance<3>();
+    if (n == mh && n == 2) return instance<2>();
+    return instance<0>();
 }
 
 }  // namespace
@@ -397,20 +283,16 @@ extern "C" {
 
 // Chunks of 4 columns that one thread owns in a row for (n, mh): the
 // wrapper's cut into items (ops/gram.py `gram_plan`) needs it.
-int gram_thread_chunks(int n, int mh) {
-    return exact(n, mh) ? Dims<kExactDim>::P : Dims<0>::P;
-}
+int gram_thread_chunks(int n, int mh) { return pick(n, mh).P; }
 
-// Thread blocks of 256 threads that one SM holds at once for (K, n, mh),
-// or -1 if (n, mh) is out of range (1 <= n, mh <= 16): the wrapper's cut
-// into items (ops/gram.py `gram_plan`) needs it.
-int gram_blocks_per_sm(int K, int n, int mh) {
-    const Config c = config(K, n, mh);
-    if (c.nbuf < 0) return -1;
-    if (set_smem(c) != 0) return -1;
+// Thread blocks of 256 threads that one SM holds at once for (n, mh), or
+// -1 if (n, mh) is out of range (1 <= n, mh <= 16): the wrapper's cut into
+// items (ops/gram.py `gram_plan`) needs it.
+int gram_blocks_per_sm(int n, int mh) {
+    const Instance c = pick(n, mh);
     int blocks = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, c.kernel,
-                                                      kThreads, c.smem))
+    if (!c.kernel || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &blocks, c.kernel, kThreads, 0))
         return -1;
     return blocks;
 }
@@ -422,15 +304,13 @@ int gram_blocks_per_sm(int K, int n, int mh) {
 int gram_launch(const float* Xs, const float* UHB, const float* mask,
                 const float* outputscale, float jitter, float* out, int B,
                 int K, int n, int mh, int R, int G, int grid, void* stream) {
-    const Config c = config(K, n, mh);
-    if (c.nbuf < 0 || B < 1 || R < 1 || G < 1 || grid < 1) return -1;
+    const Instance c = pick(n, mh);
+    if (!c.kernel || B < 1 || K < 1 || R < 1 || G < 1 || grid < 1) return -1;
     const int bands = (K + R - 1) / R;
     if ((long long)B * bands > 0x7fffffff || grid > B * bands) return -1;
     const GramArgs g{Xs, UHB, mask, outputscale, out, jitter, K, n, mh,
-                     R, G, bands, B * bands, c.nbuf};
-    const int err = set_smem(c);
-    if (err != 0) return err;
-    c.kernel<<<grid, kThreads, c.smem, (cudaStream_t)stream>>>(g);
+                     R, G, bands, B * bands};
+    c.kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(g);
     return (int)cudaGetLastError();
 }
 

@@ -159,7 +159,7 @@ _SIGNATURES = {
     },
     "gram": {
         "gram_thread_chunks": [_INT] * 2,
-        "gram_blocks_per_sm": [_INT] * 3,
+        "gram_blocks_per_sm": [_INT] * 2,
         "gram_launch": [_VP] * 4 + [_F32, _VP] + [_INT] * 7 + [_VP],
     },
 }

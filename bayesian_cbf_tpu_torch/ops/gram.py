@@ -41,22 +41,11 @@ def gram_plan(B: int, K: int, P: int, sms: int, per_sm: int,
               rows_per_thread: int = ROWS_PER_THREAD):
     """The kernel's cut into work items: (R, G, grid).  An item is a band
     of R consecutive rows of one matrix (`band_rows`); `grid` persistent
-    blocks, at most `sms` x `per_sm`, walk the B ceil(K / R) items as
-    `block_items` cuts them."""
+    blocks, at most `sms` x `per_sm`, walk the B ceil(K / R) items, block
+    g the items [g N / grid, (g + 1) N / grid) of N."""
     R, G = band_rows(K, P, rows_per_thread)
     items = B * -(-K // R)
     return R, G, max(1, min(items, sms * per_sm))
-
-
-def block_items(block: int, grid: int, items: int) -> range:
-    """The items that block `block` of `grid` walks, in order."""
-    return range(block * items // grid, (block + 1) * items // grid)
-
-
-def item_rows(item: int, K: int, R: int):
-    """(matrix, rows) of one item."""
-    b, band = divmod(item, -(-K // R))
-    return b, range(band * R, min(band * R + R, K))
 
 
 def fused_gram_kb_plain(Xs, UHB_half, mask, outputscale, jitter: float):
@@ -79,21 +68,21 @@ _SHAPES: dict = {}
 def _plan(device, B: int, K: int, n: int, mh: int, rows_per_thread: int):
     """`gram_plan` for this device and shape: the SM count is read once per
     device; the blocks one SM holds and the chunks each thread owns (the
-    kernel's instance for (n, 1+m)) once per shape."""
+    kernel's instance for (n, 1+m)) once per (n, 1+m)."""
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     if index not in _SMS:
         _SMS[index] = torch.cuda.get_device_properties(index) \
             .multi_processor_count
-    key = (index, K, n, mh)
+    key = (index, n, mh)
     if key not in _SHAPES:
         lib = _build.load("gram")
         with torch.cuda.device(index):
-            _SHAPES[key] = (lib.gram_blocks_per_sm(K, n, mh),
+            _SHAPES[key] = (lib.gram_blocks_per_sm(n, mh),
                             lib.gram_thread_chunks(n, mh))
         if _SHAPES[key][0] < 1:
             raise RuntimeError(f"fused_gram_kb: no block of the kernel fits "
-                               f"for K={K}, n={n}, 1+m={mh}")
+                               f"for n={n}, 1+m={mh}")
     per_sm, P = _SHAPES[key]
     return gram_plan(B, K, P, _SMS[index], per_sm, rows_per_thread)
 

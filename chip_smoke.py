@@ -18,10 +18,11 @@ Phases (each raises on failure; nothing is caught):
                  cones and (4, 3, 3) on the pendulum's, each also on 1003
                  random cones (no whole number of blocks).  The blocked
                  factor's kernels (the fit inverse among them), the IPM,
-                 both kernels of csrc/sweep.cu and the four instances of
+                 both kernels of csrc/sweep.cu and the three instances of
                  the fused Gram print their registers, stack and spill
                  bytes beside their times (the Gram's device time per
-                 launch too, at (256, 200) and (4, 1024)); the fit inverse
+                 launch too, at (256, 200), (4, 1024) and the pendulum's
+                 n = 1+m = 2 at (256, 200)); the fit inverse
                  and the refresh factorization also their times and
                  accuracy at other block sizes and beside the routes that
                  compute the same through several launches; the one-sweep
@@ -679,24 +680,28 @@ def _gram_inputs(dev, B, K, n, mh, seed, half_masked=False):
 
 def _check_gram_kernel(dev):
     """Kernel 4 against plain at (256, 200, 3, 3) with half the rows
-    masked, at a ragged K (201: misaligned rows) and at (4, 1024, 3, 3);
-    the near-duplicate bar; times per call and device times per launch at
-    (256, 200) and (4, 1024); registers, stack and spills of every
-    instance (0 bytes of stack and spills required)."""
+    masked, at a ragged K (201: misaligned rows), at (4, 1024, 3, 3) and
+    at the pendulum's n = 1+m = 2 (256, 200); the near-duplicate bar;
+    times per call and device times per launch at the three full shapes;
+    registers, stack and spills of every instance (0 bytes of stack and
+    spills required)."""
     from bayesian_cbf_tpu_torch.ops import gram as gm
     stats = {}
-    for B, K, n, mh in ((256, 200, 3, 3), (5, 201, 3, 3), (4, 1024, 3, 3)):
-        args = _gram_inputs(dev, B, K, n, mh, 3 if K == 200 else K,
-                            half_masked=K == 200)
+    for B, K, n, mh in ((256, 200, 3, 3), (5, 201, 3, 3), (4, 1024, 3, 3),
+                        (256, 200, 2, 2)):
+        unicycle = (K, n) == (200, 3)
+        args = _gram_inputs(dev, B, K, n, mh, 3 if unicycle else K,
+                            half_masked=unicycle)
         got = gm.fused_gram_kb(*args, 1e-6)
         want = gm.fused_gram_kb_plain(*args, 1e-6)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
-        masked = ", half the rows masked" if K == 200 else ""
+        masked = ", half the rows masked" if unicycle else ""
         print(f"[gram] ({B}, {K}, n={n}, 1+m={mh}){masked}: max abs err vs "
               f"plain {err:.3e}, relative {rel:.3e}", flush=True)
-        _require(rel < 1e-5, f"gram disagrees with plain at K={K}: {rel}")
+        _require(rel < 1e-5, f"gram disagrees with plain at K={K}, n={n}: "
+                 f"{rel}")
         if K == 201:
             continue
         fn = lambda: gm.fused_gram_kb(*args, 1e-6)
@@ -704,12 +709,12 @@ def _check_gram_kernel(dev):
         device_ms = _device_ms(fn, "gram_kernel", 50)
         plain_ms = _cuda_ms(lambda: gm.fused_gram_kb_plain(*args, 1e-6), 20)
         bound = _gram_bound(B, K, n, mh)
-        print(f"[gram] ({B}, {K}): kernel {ms:.4f} ms per call, "
-              f"{device_ms:.4f} ms of device time per launch, plain "
+        print(f"[gram] ({B}, {K}, n={n}, 1+m={mh}): kernel {ms:.4f} ms per "
+              f"call, {device_ms:.4f} ms of device time per launch, plain "
               f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']})", flush=True)
-        stats[(B, K)] = dict(max_abs_err=err, ms=ms, device_ms=device_ms,
-                             plain_ms=plain_ms, **bound)
+        stats[(B, K, n)] = dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                                plain_ms=plain_ms, **bound)
     *near, truth = _near_duplicate_case()
     near = [torch.tensor(a, dtype=torch.float32, device=dev) for a in near]
     got = gm.fused_gram_kb(*near, 1e-6).double().cpu().numpy()
@@ -717,14 +722,13 @@ def _check_gram_kernel(dev):
     print(f"[gram] near-duplicate points vs f64 truth: max |err| - 2e-5|truth|"
           f" = {excess:.3e} (must be < 2e-5)", flush=True)
     _require(excess < 2e-5, "gram loses the near-duplicate distances")
-    usage = {f"<{d}, {st}>": _usage("gram", f"gram_kernel<{d}, {st}>")
-             for d in (3, 0) for st in (1, 0)}
+    usage = {f"<{d}>": _usage("gram", f"gram_kernel<{d}>") for d in (3, 2, 0)}
     for inst, u in usage.items():
         print(f"[gram] gram_kernel{inst}: {_usage_text(u)}", flush=True)
         _require(u["stack_bytes"] == 0 and u["spill_bytes"] == 0,
                  f"gram_kernel{inst} uses local memory: {u}")
-    return dict(**stats[(256, 200)], library_ms=None, usage=usage,
-                k1024=stats[(4, 1024)])
+    return dict(**stats[(256, 200, 3)], library_ms=None, usage=usage,
+                k1024=stats[(4, 1024, 3)], pendulum=stats[(256, 200, 2)])
 
 
 def _same_bits(got, want):

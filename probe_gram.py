@@ -4,15 +4,15 @@ on one NVIDIA card, beyond what chip_smoke.py holds it to.
 
     python3 probe_gram.py [--earlier-csrc DIR]
 
-  1. routes -- at (256, 200, n=3, 1+m=3), (4, 1024, 3, 3) and
-               (2, 1024, 16, 16): the shipped kernel (16-byte streaming
-               stores, two 4-column chunks per thread and inputs staged
-               in shared memory at n = 1+m = 3) at 2, 4 and 8
-               rows per thread, and copies of csrc/gram.cu changed as
-               VARIANTS says, built beside it: the other store route (each
-               band built in shared memory and written by one bulk TMA
-               store, double-buffered), one chunk per thread, inputs read
-               from global memory, and two cut copies (stores only,
+  1. routes -- at (256, 200, n=3, 1+m=3), (4, 1024, 3, 3),
+               (2, 1024, 16, 16) and the pendulum's n = 1+m = 2 at
+               (256, 200) and (256, 512): the shipped kernel (16-byte
+               streaming stores, inputs read in place through L1) at 2, 4
+               and 8 rows per thread, and copies of csrc/gram.cu changed
+               as VARIANTS says, built beside it: the other store route
+               (each band built in shared memory and written by one bulk
+               TMA store, double-buffered), every shape on the instance
+               for any n, 1+m, and two cut copies (stores only,
                arithmetic only) that split the time.  For each: device
                time per launch (torch.profiler), time per call (CUDA
                events), registers, stack and spill bytes, and whether the
@@ -25,9 +25,11 @@ on one NVIDIA card, beyond what chip_smoke.py holds it to.
                (torch.equal on the int32 view) at (256, 200, 3, 3) with
                half the rows masked, (1, 1, 1, 1), (3, 33, 3, 3),
                (5, 201, 3, 3), (2, 70, 16, 16), (4, 1024, 3, 3),
-               (2, 1024, 16, 16), (1000, 200, 3, 3), the near-duplicate
-               case and the refresh inputs of run (c) (the arguments of
-               every launch in one rollout of the flagship batch with
+               (2, 1024, 16, 16), (1000, 200, 3, 3), (1, 2051, 3, 3),
+               (1, 1027, 16, 16), (256, 200, 2, 2), (256, 512, 2, 2),
+               (2, 201, 2, 2), (2, 70, 2, 3), the near-duplicate case and
+               the refresh inputs of run (c) (the arguments of every
+               launch in one rollout of the flagship batch with
                fused_gram=True).
 """
 import argparse
@@ -43,7 +45,8 @@ from chip_smoke import (_cuda_ms, _device_ms, _near_duplicate_case,
                         _require, phase_device)
 from probe_kinv_logdet import _nvcc
 
-TIMED = ((256, 200, 3, 3), (4, 1024, 3, 3), (2, 1024, 16, 16))
+TIMED = ((256, 200, 3, 3), (4, 1024, 3, 3), (2, 1024, 16, 16),
+         (256, 200, 2, 2), (256, 512, 2, 2))
 
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -65,14 +68,13 @@ def _inputs(dev, B, K, n, mh, seed, half_masked=False):
 # Changes to csrc/gram.cu that make each variant timed beside the shipped
 # kernel: (old text, new text) or (old text, new text, times it occurs).
 # The other store route: each band is built in shared memory (two band
-# buffers of at most 32 KB, so R <= 8192 / K) and written with one bulk
-# (TMA) store, cp.async.bulk.global.shared::cta.bulk_group, of its 16-byte
-# aligned part; a buffer is written again once the store two bands back
-# has read it (cp.async.bulk.wait_group.read).
-TMA_HELPERS = r"""// Floats of one band buffer of R rows, at any 16-byte alignment.
-__host__ __device__ inline int band_floats(int K, int R) {
-    return ((R * K + 3) / 4 + 1) * 4;
-}
+# buffers of 32 KB, so R K <= 8192) and written with one bulk (TMA) store,
+# cp.async.bulk.global.shared::cta.bulk_group, of its 16-byte aligned
+# part; a buffer is written again once the store two bands back has read
+# it (cp.async.bulk.wait_group.read).
+TMA_HELPERS = r"""// One band buffer: R K <= 8192 floats at any 16-byte offset.
+constexpr int kBandFloats = 8192 + 4;
+constexpr int kBandSmem = 2 * kBandFloats * sizeof(float);
 
 __device__ inline void wait_band_buffer() {
     if (threadIdx.x == 0)
@@ -101,15 +103,12 @@ __device__ void flush_band(float* gb, const float* sbp, int total, int pad) {
 
 """
 TMA = (
-    ("// Input p of column j in a staged matrix",
-     TMA_HELPERS + "// Input p of column j in a staged matrix"),
-    ("    int nbuf;   // staging buffers: 2, 1 (or 0: inputs read from global)\n",
-     "    int nbuf;   // staging buffers: 2, 1 (or 0: inputs read from global)\n"
-     "    int band_floats;\n"),
-    ("                     int i0, int rows) {\n"
+    ("// One matrix's inputs, read through L1.",
+     TMA_HELPERS + "// One matrix's inputs, read through L1."),
+    ("                     float* ob, int i0, int rows) {\n"
      "    constexpr int P = Dims<N>::P, W = Dims<N>::W;\n"
      "    const int K = g.K, n = g.n, mh = g.mh, G = g.G;\n",
-     "                     int i0, int rows, float* sb) {\n"
+     "                     float* ob, int i0, int rows, float* sb) {\n"
      "    constexpr int P = Dims<N>::P, W = Dims<N>::W;\n"
      "    const int K = g.K, n = g.n, mh = g.mh, G = g.G;\n"
      "    float* gb = ob + (size_t)i0 * K;\n"
@@ -125,47 +124,41 @@ TMA = (
      "                            dst[q] = w[q];\n"),
     ("    }\n}\n\n// Block g's items",
      "    }\n    flush_band(gb, sbp, rows * K, pad);\n}\n\n// Block g's items"),
-    ("    const int per = staged_floats(g.K, g.n, g.mh);\n    int cur = 0;\n",
-     "    const int per = staged_floats(g.K, g.n, g.mh);\n"
-     "    float* bands = smem + g.nbuf * per;\n    int cur = 0, k = 0;\n"),
-    ("            const int rows = min(g.R, g.K - i0);\n",
-     "            const int rows = min(g.R, g.K - i0);\n"
-     "            float* sb = bands + k * g.band_floats;\n"
-     "            k ^= 1;\n            wait_band_buffer();\n"),
-    ("s, ob, i0, rows);", "s, ob, i0, rows, sb);", 2),
-    ("                stage(g, b + 1, smem);\n        }\n    }\n}\n",
-     "                stage(g, b + 1, smem);\n        }\n    }\n"
-     "    if (threadIdx.x == 0)\n"
+    ("    const int last = first_item(blockIdx.x + 1, gridDim.x, g.items);\n",
+     "    extern __shared__ __align__(16) float smem[];\n    int k = 0;\n"
+     "    const int last = first_item(blockIdx.x + 1, gridDim.x, g.items);\n"),
+    ("                min(g.R, g.K - i0));\n    }\n}\n",
+     "                min(g.R, g.K - i0), smem + k * kBandFloats);\n"
+     "        k ^= 1;\n    }\n    if (threadIdx.x == 0)\n"
      "        asm volatile(\"cp.async.bulk.wait_group 0;\\n\" ::: \"memory\");\n"
      "}\n"),
-    ("    const int nbuf = 2 * per <= room ? 2 : per <= room ? 1 : 0;\n",
-     "    const size_t bands =\n"
-     "        2 * (size_t)band_floats(K, max(1, 8192 / K)) * sizeof(float);\n"
-     "    const int nbuf = bands + 2 * per <= room ? 2\n"
-     "                     : bands + per <= room ? 1 : 0;\n"),
-    ("    return Config{kernels[nbuf > 0][exact(n, mh)], nbuf, nbuf * per};",
-     "    return Config{kernels[nbuf > 0][exact(n, mh)], nbuf,\n"
-     "                  bands + nbuf * per};"),
-    ("                     R, G, bands, B * bands, c.nbuf};",
-     "                     R, G, bands, B * bands, c.nbuf, band_floats(K, R)};"),
+    ("        band<N>(g, src,",
+     "        wait_band_buffer();\n        band<N>(g, src,"),
+    ("    if (!c.kernel || cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n"
+     "                         &blocks, c.kernel, kThreads, 0))\n",
+     "    if (!c.kernel || cudaFuncSetAttribute((const void*)c.kernel,\n"
+     "            cudaFuncAttributeMaxDynamicSharedMemorySize, kBandSmem) ||\n"
+     "        cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n"
+     "                         &blocks, c.kernel, kThreads, kBandSmem))\n"),
+    ("    c.kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(g);\n",
+     "    if ((long long)R * K > 8192) return -1;\n"
+     "    c.kernel<<<grid, kThreads, kBandSmem, (cudaStream_t)stream>>>(g);\n"),
 )
-ONE_CHUNK = (("    static constexpr int P = N ? 2 : 1;\n",
-              "    static constexpr int P = 1;\n"),)
 STORES_ONLY = (("            entries<N>(ri, c, n, mh, s, v);\n",
                 "#pragma unroll\n            for (int q = 0; q < W; ++q) v[q] = s;\n"),)
 COMPUTE_ONLY = (
     ("                    __stcs(reinterpret_cast<float4*>(dst),\n"
      "                           make_float4(w[0], w[1], w[2], w[3]));\n",
      "                    if (w[0] + w[1] + w[2] + w[3] == -1.0f) dst[0] = w[0];\n"),)
-UNSTAGED = (("    const int nbuf = 2 * per <= room ? 2 : per <= room ? 1 : 0;\n",
-             "    const int nbuf = 0;\n"),)
+# every (n, 1+m) on the instance for any n, 1+m <= 16
+GENERIC = (("    if (n == mh && n == 3) return instance<3>();\n"
+            "    if (n == mh && n == 2) return instance<2>();\n", ""),)
 # name: (changes, rows per thread timed); the cut copies (stores or
 # compute only) give no Gram and are not compared
 VARIANTS = {
     "streaming stores": ((), (2, 4, 8)),
-    "streaming stores, one chunk per thread": (ONE_CHUNK, (8,)),
-    "streaming stores, inputs from global": (UNSTAGED, (8,)),
     "TMA band stores": (TMA, (2, 4)),
+    "generic instance only": (GENERIC, (8,)),
     "cut: stores only": (STORES_ONLY, (8,)),
     "cut: compute only": (COMPUTE_ONLY, (8,)),
 }
@@ -314,7 +307,9 @@ def bits(dev, card, lib):
              _inputs(dev, 256, 200, 3, 3, 3, half_masked=True)}
     for shape in ((1, 1, 1, 1), (3, 33, 3, 3), (5, 201, 3, 3),
                   (2, 70, 16, 16), (4, 1024, 3, 3), (2, 1024, 16, 16),
-                  (1000, 200, 3, 3)):
+                  (1000, 200, 3, 3), (1, 2051, 3, 3), (1, 1027, 16, 16),
+                  (256, 200, 2, 2), (256, 512, 2, 2), (2, 201, 2, 2),
+                  (2, 70, 2, 3)):
         cases[str(shape)] = _inputs(dev, *shape, seed=shape[1])
     *near, _ = _near_duplicate_case()
     cases["near-duplicate (4, 40, 3, 3)"] = [

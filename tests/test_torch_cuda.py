@@ -461,13 +461,16 @@ def _gram_args(cuda, B, K, n, mh, seed):
                                       (5, 201, 3, 3), (5, 203, 3, 3),
                                       (2, 1024, 16, 16), (1000, 200, 3, 3),
                                       (1, 5000, 3, 3), (1, 9000, 3, 3),
-                                      (1, 2000, 16, 16)])
+                                      (1, 2000, 16, 16), (1, 2051, 3, 3),
+                                      (1, 1027, 16, 16), (3, 200, 2, 2),
+                                      (2, 201, 2, 2), (2, 70, 2, 3)])
 def test_gram_kernel_matches_plain(cuda, B, K, n, mh):
     """Also K % 4 != 0 (rows that start off 16-byte alignment: partial
-    chunks), B = 1000 (more items than resident blocks), one staging
-    buffer and not two (K = 5000 at n = 1+m = 3, K = 1024 at 16) and no
-    staged copy (inputs read from global memory: K = 9000 at 3, 2000 at
-    16), at both instances (n = 1+m = 3 and any other)."""
+    chunks; at K = 2051 and 1027 fewer than 4 row groups, so that a
+    thread's rows change alignment and one thread has two chunks), B =
+    1000 (more items than resident blocks), large K (5000, 9000 at n =
+    1+m = 3; 2000 at 16), at the three instances (n = 1+m = 3, n = 1+m =
+    2 and any other)."""
     args = _gram_args(cuda, B, K, n, mh, K)
     got = gm.fused_gram_kb(*args, 1e-6)
     want = gm.fused_gram_kb_plain(*args, 1e-6)
@@ -487,7 +490,7 @@ def test_gram_same_bits_twice(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,K,n,mh", [(256, 200, 3, 3), (2, 1024, 16, 16),
-                                      (1, 2000, 16, 16)])
+                                      (1, 2000, 16, 16), (256, 200, 2, 2)])
 def test_gram_rows_per_thread_give_the_same_bits(cuda, B, K, n, mh):
     """The cut into items moves no bit: every entry is computed alone."""
     args = _gram_args(cuda, B, K, n, mh, K + 1)
