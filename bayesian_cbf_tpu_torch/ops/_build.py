@@ -153,9 +153,10 @@ _SIGNATURES = {
         "chol_dinv_launch": [_VP] * 4 + [_INT] * 4 + [_VP],
     },
     "cholsolve": {
-        "cholsolve_plan": [_INT] * 4,
+        "cholsolve_plan": [_INT] * 3,
         "cholsolve_logdet_launch": [_VP] * 8 + [_INT] * 5 + [_VP],
-        "solve_with_factor_launch": [_VP] * 5 + [_INT] * 5 + [_VP],
+        "solve_with_factor_width": [_INT] * 2,
+        "solve_with_factor_launch": [_VP] * 4 + [_INT] * 7 + [_VP],
     },
     "gram": {
         "gram_thread_chunks": [_INT] * 2,

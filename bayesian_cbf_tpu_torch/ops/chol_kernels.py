@@ -384,14 +384,14 @@ def cholsolve_logdet(K: torch.Tensor, RHS: torch.Tensor, nb: int = NB_BLK):
                          f"K has {n}")
     N = padded_order(n, nb)
     lib = _build.load("cholsolve")
-    plan = lib.cholsolve_plan(N, nb, r, 1)
+    plan = lib.cholsolve_plan(N, nb, r)
     kw = dict(dtype=K.dtype, device=K.device)
     sol = torch.empty((B, n, r), **kw)
     L = torch.empty((B, N, N), **kw)
     Dinv = torch.empty((B, N, nb), **kw)
     logdet = torch.empty((B,), **kw)
     a = _scratch(not plan & 1, (B, N, N), K)
-    x = _scratch(not plan & 2, (B, N, r), K)
+    x = _scratch(not plan & 2, (B, N, -(-r // 4) * 4), K)
     rc = lib.cholsolve_logdet_launch(
         K.data_ptr(), RHS.data_ptr(), sol.data_ptr(), L.data_ptr(),
         Dinv.data_ptr(), logdet.data_ptr(),
@@ -404,6 +404,62 @@ def cholsolve_logdet(K: torch.Tensor, RHS: torch.Tensor, nb: int = NB_BLK):
 
 
 cholsolve_logdet.launches = 0
+
+
+def solve_groups(B: int, r: int, sms: int, width: int):
+    """(groups, cols): the r columns of each right-hand side cut into
+    `groups` blocks of `cols` columns (the last takes the rest), cols a
+    multiple of 4 and at most `width` (what one block holds).  As few
+    groups as fit; more, down to 4 columns a group, while the batch alone
+    gives fewer blocks than the card's `sms` SMs.  The cut changes no bit
+    of the solution: each entry's sums run in one thread in a fixed order."""
+    quads = -(-r // 4)
+    groups = -(-quads // max(1, width // 4))
+    if B * groups < sms:
+        groups = min(quads, max(groups, -(-sms // B)))
+    cols = 4 * -(-quads // groups)
+    return -(-r // cols), cols
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index) \
+            .multi_processor_count
+    return _SMS[index]
+
+
+_SOLVE_PLANS: dict = {}
+
+
+def _launch_solve(L, Dinv, RHS, nb: int, groups: int | None = None):
+    """One launch of kernel 7 on checked CUDA tensors, not counted: the
+    columns cut as `solve_groups` cuts them (kept per library, shape and
+    device), or into about `groups` blocks per matrix of a multiple of 4
+    columns each."""
+    B, N = L.shape[0], L.shape[-1]
+    n, r = RHS.shape[1:]
+    lib = _build.load("cholsolve")
+    if groups is None:
+        key = (lib, B, N, nb, r, L.device)
+        if key not in _SOLVE_PLANS:
+            _SOLVE_PLANS[key] = solve_groups(
+                B, r, _sm_count(L.device), lib.solve_with_factor_width(N, nb))
+        groups, cols = _SOLVE_PLANS[key]
+    else:
+        cols = 4 * -(-r // (4 * groups))
+        groups = -(-r // cols)
+    sol = torch.empty((B, n, r), dtype=L.dtype, device=L.device)
+    rc = lib.solve_with_factor_launch(
+        L.data_ptr(), Dinv.data_ptr(), RHS.data_ptr(), sol.data_ptr(), B, n,
+        N, nb, r, groups, cols,
+        torch.cuda.current_stream(L.device).cuda_stream)
+    _build.check(rc, "solve_with_factor_launch")
+    return sol
 
 
 def solve_with_factor(L: torch.Tensor, Dinv: torch.Tensor,
@@ -423,17 +479,8 @@ def solve_with_factor(L: torch.Tensor, Dinv: torch.Tensor,
         raise ValueError(f"solve_with_factor: expected a contiguous float32 "
                          f"Dinv {(B, N, nb)} on {L.device}, got "
                          f"{Dinv.dtype} {tuple(Dinv.shape)} on {Dinv.device}")
-    r = _check_rhs(RHS, B, N, L, "solve_with_factor")
-    n = RHS.shape[1]
-    lib = _build.load("cholsolve")
-    plan = lib.cholsolve_plan(N, nb, r, 0)
-    sol = torch.empty((B, n, r), dtype=L.dtype, device=L.device)
-    x = _scratch(not plan & 2, (B, N, r), L)
-    rc = lib.solve_with_factor_launch(
-        L.data_ptr(), Dinv.data_ptr(), RHS.data_ptr(), sol.data_ptr(),
-        None if x is None else x.data_ptr(), B, n, N, nb, r,
-        torch.cuda.current_stream(L.device).cuda_stream)
-    _build.check(rc, "solve_with_factor_launch")
+    _check_rhs(RHS, B, N, L, "solve_with_factor")
+    sol = _launch_solve(L, Dinv, RHS, nb)
     solve_with_factor.launches += 1
     return sol
 

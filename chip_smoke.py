@@ -916,12 +916,13 @@ def _check_chol_dinv_kernel(dev):
 def _check_cholsolve_kernels(dev):
     """Kernel 6 (factor + solve + logdet) and kernel 7 (solve with the
     saved factor) against their plain versions and an f64 solve, on
-    trajectory Grams, at (B, n, r) = (256, 200, 16) and (4, 1024, 16)."""
+    trajectory Grams and on SPD matrices, at (B, n, r) = (256, 200, 16) and
+    (4, 1024, 16), with times per call and device times per launch."""
     from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
     nb = ck.NB_BLK
     rel = lambda a, b: float((a.double() - b.double()).abs().max()
                              / b.double().abs().max())
-    out = {}
+    stats = {}
     for B, n, r in ((256, 200, 16), (4, 1024, 16)):
         K = torch.tensor(_trajectory_grams(B, n, seed=n + 3),
                          dtype=torch.float32, device=dev)
@@ -949,8 +950,8 @@ def _check_cholsolve_kernels(dev):
                  f"{ld_err}")
         _require(rel(again, again_plain) < 1e-4,
                  f"solve_with_factor ({B}, {n}, {r}) disagrees with plain")
-        if n > 200:
-            continue
+        _require(torch.equal(again, got[0]),
+                 f"kernels 6 and 7 differ at ({B}, {n}, {r})")
         S = torch.tensor(_spd(B, n, 4), dtype=torch.float32, device=dev)
         g6, w6 = ck.cholsolve_logdet(S, R, nb), ck.cholsolve_logdet_plain(
             S, R, nb)
@@ -967,31 +968,49 @@ def _check_cholsolve_kernels(dev):
         N = ck.padded_order(n, nb)
         L, Dinv = got[1], got[2]
         Ln = L[:, :n, :n].contiguous()
-        t6 = dict(ms=_cuda_ms(lambda: ck.cholsolve_logdet(K, R, nb), 20),
+        run6 = lambda: ck.cholsolve_logdet(K, R, nb)
+        run7 = lambda: ck.solve_with_factor(L, Dinv, R, nb)
+        t6 = dict(ms=_cuda_ms(run6, 20),
+                  device_ms=_device_ms(run6, "cholsolve_kernel", 20),
                   plain_ms=_cuda_ms(lambda: ck.cholsolve_logdet_plain(
                       K, R, nb), 20),
                   # the solution only, without L, Dinv and the logdet
                   library_ms=_cuda_ms(lambda: torch.linalg.solve_ex(K, R),
                                       20))
-        t7 = dict(ms=_cuda_ms(lambda: ck.solve_with_factor(L, Dinv, R, nb),
-                              20),
+        t7 = dict(ms=_cuda_ms(run7, 20),
+                  device_ms=_device_ms(run7, "solve_with_factor_kernel", 20),
                   plain_ms=_cuda_ms(lambda: ck.solve_with_factor_plain(
                       L, Dinv, R, nb), 20),
                   library_ms=_cuda_ms(lambda: torch.cholesky_solve(R, Ln),
                                       20))
         b6 = _cholsolve_bound(B, n, r, N, nb)
         b7 = _solve_with_factor_bound(B, n, r, nb)
-        u6 = _usage("cholsolve", "cholsolve_kernel<32, 512>")
-        u7 = _usage("cholsolve", "solve_with_factor_kernel")
-        for name, t, b, u in (("cholsolve_logdet", t6, b6, u6),
-                              ("solve_with_factor", t7, b7, u7)):
-            print(f"[{name}] ({B}, {n}, {r}): kernel {t['ms']:.3f} ms, plain "
-                  f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms,"
-                  f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
-                  f"{_usage_text(u)}", flush=True)
-        out["cholsolve_logdet"] = dict(max_abs_err=err6, **t6, **b6, **u6)
-        out["solve_with_factor"] = dict(max_abs_err=err7, **t7, **b7, **u7)
-    return out
+        for name, t, b, err in (("cholsolve_logdet", t6, b6, err6),
+                                ("solve_with_factor", t7, b7, err7)):
+            print(f"[{name}] ({B}, {n}, {r}): kernel {t['ms']:.4f} ms per "
+                  f"call, {t['device_ms']:.4f} ms of device time per launch, "
+                  f"plain {t['plain_ms']:.3f} ms, library "
+                  f"{t['library_ms']:.3f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']})", flush=True)
+            stats[(name, n)] = dict(max_abs_err=err, **t, **b)
+    # <..., 1>: nb a multiple of 4 (L read as float4), the one that runs
+    usage = {k: _usage("cholsolve", k) for k in (
+        "cholsolve_kernel<32, 512, 1>", "cholsolve_kernel<32, 512, 0>",
+        "cholsolve_kernel<64, 256, 1>", "cholsolve_kernel<64, 256, 0>",
+        "solve_with_factor_kernel<1>", "solve_with_factor_kernel<0>")}
+    for kernel, u in usage.items():
+        print(f"[cholsolve] {kernel}: {_usage_text(u)}", flush=True)
+    for kernel in ("cholsolve_kernel<32, 512, 1>",
+                   "solve_with_factor_kernel<1>",
+                   "solve_with_factor_kernel<0>"):
+        _require(usage[kernel]["stack_bytes"] == 0
+                 and usage[kernel]["spill_bytes"] == 0,
+                 f"{kernel} uses local memory: {usage[kernel]}")
+    return {name: dict(**stats[(name, 200)], **usage[kernel],
+                       k1024=stats[(name, 1024)])
+            for name, kernel in (
+                ("cholsolve_logdet", "cholsolve_kernel<32, 512, 1>"),
+                ("solve_with_factor", "solve_with_factor_kernel<1>"))}
 
 
 def _expected_launches(lrn, T, warm_start):

@@ -84,3 +84,22 @@ def test_cholsolve_cuda_checks_fail_without_a_card():
         ck.solve_with_factor(torch.empty((2, 32, 32), device="meta"),
                              torch.empty((2, 32, 32), device="meta"),
                              torch.empty((2, 4, 1), device="meta"))
+
+
+@pytest.mark.parametrize("B,r,sms,width,want", [
+    (256, 16, 132, 64, (1, 16)),   # the batch fills the card: a block a matrix
+    (132, 16, 132, 64, (1, 16)),
+    (100, 16, 132, 64, (2, 8)),
+    (4, 16, 132, 40, (4, 4)),      # (4, 1024, 16): 4 columns a block
+    (1, 11, 132, 64, (3, 4)),      # groups that do not divide r: 4 + 4 + 3
+    (1, 1, 132, 64, (1, 4)),
+    (2, 64, 132, 40, (16, 4)),
+    (300, 64, 132, 36, (2, 32)),   # wider than one block holds
+])
+def test_solve_groups_cut_the_columns(B, r, sms, width, want):
+    """Kernel 7's column groups: as few as fit, more while the batch gives
+    fewer blocks than SMs; every column in exactly one group."""
+    groups, cols = ck.solve_groups(B, r, sms, width)
+    assert (groups, cols) == want
+    assert cols % 4 == 0 and cols <= max(width, 4)
+    assert (groups - 1) * cols < r <= groups * cols

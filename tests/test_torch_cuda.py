@@ -550,10 +550,19 @@ def test_new_kernels_count_launches_and_reject_bad_input(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,r,nb", [(3, 50, 11, 16), (4, 200, 16, 32),
                                       (2, 200, 64, 32), (2, 1024, 16, 32),
-                                      (2, 1024, 64, 32), (2, 1, 1, 32)])
+                                      (2, 1024, 64, 32), (2, 1, 1, 32),
+                                      (5, 200, 1, 32), (5, 200, 3, 32),
+                                      (1, 201, 16, 32), (2, 1000, 3, 32),
+                                      (3, 200, 16, 16), (3, 200, 16, 64),
+                                      (2, 300, 64, 64), (1, 70, 11, 12),
+                                      (2, 45, 5, 6)])
 def test_cholsolve_kernels_match_plain(cuda, B, n, r, nb):
-    """Every shared-memory plan: the factor's matrix and the RHS in shared
-    memory, the matrix in global scratch, both in global scratch."""
+    """Every shared-memory plan of kernel 6: the factor's matrix and the
+    RHS in shared memory, the matrix in global scratch, both in global
+    scratch ((2, 1024, 64)); kernel 7's column groups (several at a small
+    batch, one not dividing r at r = 3, 5 and 11), block sizes 6 and 12
+    (scalar tile loads), 16, 32 and 64 (kernel 6 runs <64, 256>), ragged
+    n and B = 1."""
     rng = np.random.default_rng(n + r)
     R = torch.tensor(rng.normal(size=(B, n, r)), dtype=torch.float32,
                      device=cuda)
@@ -574,6 +583,25 @@ def test_cholsolve_kernels_match_plain(cuda, B, n, r, nb):
     assert float((dinv[1] - got[2]).abs().max()) == 0.0
     exact = torch.linalg.solve(S.double(), R.double())
     assert _rel(got[0].double(), exact) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,r,groups", [(4, 200, 16, 1), (4, 200, 16, 2),
+                                          (4, 200, 16, 4), (2, 130, 11, 2),
+                                          (2, 130, 11, 3), (2, 1024, 64, 2),
+                                          (2, 1024, 64, 16)])
+def test_solve_with_factor_column_groups_keep_bits(cuda, B, n, r, groups):
+    """However kernel 7 cuts the columns into blocks, each entry's sums run
+    in one thread in the same order: kernel 6's solution, bit for bit."""
+    rng = np.random.default_rng(n + r)
+    R = torch.tensor(rng.normal(size=(B, n, r)), dtype=torch.float32,
+                     device=cuda)
+    S = torch.tensor(_trajectory_grams(B, n, n), dtype=torch.float32,
+                     device=cuda)
+    sol, L, Dinv, _ = ck.cholsolve_logdet(S, R)
+    got = ck._launch_solve(L, Dinv, R, ck.NB_BLK, groups)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), sol.view(torch.int32))
 
 
 @pytest.mark.cuda
