@@ -56,12 +56,18 @@ class ControlInfo(NamedTuple):
     cbc_vars: torch.Tensor   # (B, n_cbfs)
 
 
+def warm_cone_count(cfg: BayesCLFControllerConfig, n_cbfs: int) -> int:
+    """Cones of the controller's SOCP (objective, CLC, CBCs): the leading
+    dimension of the warm-start slack and dual blocks."""
+    return 2 + n_cbfs
+
+
 def warm_init(cfg: BayesCLFControllerConfig, n_cbfs: int, batch: int,
               device, dtype):
     """Cold (x, S, Z) warm-start state, identical to the solver's own
     cold start: x = 0, S = Z = e per cone."""
     nvar = cfg.u_dim + 2
-    C, dmax = 2 + n_cbfs, cfg.u_dim + 2
+    C, dmax = warm_cone_count(cfg, n_cbfs), cfg.u_dim + 2
     e = torch.zeros((batch, C, dmax), dtype=dtype, device=device)
     e[..., 0] = 1.0
     return (torch.zeros((batch, nvar), dtype=dtype, device=device), e,
@@ -90,14 +96,17 @@ def _constants(cfg: BayesCLFControllerConfig, n_cbfs: int, dtype, device):
 
 
 def constraint_cone_terms(cfg: BayesCLFControllerConfig, clf, cbfs,
-                          planner, moments, x, t: int):
+                          planner, moments, x, t):
     """(sgn (C,), const (B, C), m_aff (B, C, 1+m), s (B, C), LbT
-    (B, 1+m, 1+m)) of the CLC (row 0, sign -1) and the CBC cones."""
+    (B, 1+m, 1+m)) of the CLC (row 0, sign -1) and the CBC cones.  The
+    step t is an int, or a (B,) tensor of one step per row."""
     FT, Bk, A = moments
     Lb = psd_chol_small_ladder(Bk, init_jitter=1e-10)
     LbT = Lb.transpose(-1, -2)
     V, gclf, ggoal = clf.value_and_grads(x, planner.plan(t))
-    consts = [cfg.clf_gamma * V + ggoal @ planner.dot_plan(t)]
+    dplan = planner.dot_plan(t)
+    consts = [cfg.clf_gamma * V + (ggoal @ dplan if dplan.ndim == 1 else
+                                   (ggoal * dplan).sum(-1))]
     ws = [gclf]
     for cbf, gamma in zip(cbfs, cfg.cbf_gammas):
         h, gh = cbf.value_and_grad(x)
@@ -109,6 +118,27 @@ def constraint_cone_terms(cfg: BayesCLFControllerConfig, clf, cbfs,
     m_aff = W @ FT                                           # (B, C, 1+m)
     s = torch.einsum('bci,bij,bcj->bc', W, A, W)
     return sgn, const, m_aff, s, LbT
+
+
+def chance_constraint_margins(cfg: BayesCLFControllerConfig, clf, cbfs,
+                              planner, moments, x, t, u):
+    """Realized chance-constraint margins at applied controls u (B, m),
+    (B, 1 + n_cbfs):
+
+        margin_c = sgn_c (m_aff_c [1; u] + const_c)
+                   - rho sqrt(s_c) || LbT[:, 1:] u + LbT[:, 0] ||
+
+    >= 0 means Pr[violation] <= max_risk under the posterior.  Row 0 is
+    the CLC without its relax slack (it may go negative); rows 1.. are the
+    CBCs.  Built from `constraint_cone_terms`, the controller's own cone
+    terms, so the audit and the controller cannot drift apart."""
+    sgn, const, m_aff, s, LbT = constraint_cone_terms(
+        cfg, clf, cbfs, planner, moments, x, t)
+    lin = sgn * (m_aff[..., 0] + (m_aff[..., 1:] @ u[:, :, None])[..., 0]
+                 + const)
+    nv = (LbT[:, :, 1:] @ u[:, :, None])[..., 0] + LbT[:, :, 0]
+    return lin - cfg.rho * torch.sqrt(torch.clamp(s, min=0.0)) \
+        * torch.linalg.vector_norm(nv, dim=-1)[:, None]
 
 
 def controller_socp(cfg: BayesCLFControllerConfig, clf, cbfs, planner,

@@ -2,7 +2,9 @@
 
 The step index t is a Python int (the rollout's static loop counter), so
 the checkpoint selection happens on the host and `plan(t)` / `dot_plan(t)`
-cost a few tensor ops with no device synchronisation.
+cost a few tensor ops with no device synchronisation.  A tensor of step
+indices (T,) gives the plan at every one of them at once, (T, 3): the
+post-hoc audit of a whole episode.
 """
 from __future__ import annotations
 
@@ -34,27 +36,39 @@ class PiecewiseLinearPlanner(NamedTuple):
         return cls(p0=p0, cps_t=(float(t2), float(numSteps)),
                    cps_x=torch.stack([cp1, cp2]), numSteps=numSteps, dt=dt)
 
-    def _target_step(self, t: int):
+    def _target_step(self, t):
         look = max(int(0.1 * self.numSteps), 1)
+        if isinstance(t, torch.Tensor):
+            return torch.clamp(t + look, max=self.numSteps
+                               ).to(self.p0.dtype)[..., None]
         return min(t + look, self.numSteps)
 
     def _interval(self, ts):
+        if isinstance(ts, torch.Tensor):
+            first = ts <= self.cps_t[0]
+            f = first.to(ts.dtype)
+            return ((1.0 - f) * self.cps_t[0],
+                    torch.where(first, self.p0, self.cps_x[0]),
+                    f * self.cps_t[0] + (1.0 - f) * self.cps_t[1],
+                    torch.where(first, self.cps_x[0], self.cps_x[1]))
         if ts <= self.cps_t[0]:
             return 0.0, self.p0, self.cps_t[0], self.cps_x[0]
         return self.cps_t[0], self.cps_x[0], self.cps_t[1], self.cps_x[1]
 
-    def plan(self, t: int):
+    def plan(self, t):
         ts = self._target_step(t)
         prev_t, prev_x, cp_t, cp_x = self._interval(ts)
         xp = (cp_x - prev_x) * (ts - prev_t) / (cp_t - prev_t) + prev_x
-        return torch.cat([xp[:2], torch.atan2(xp[3:4], xp[2:3])])
+        return torch.cat([xp[..., :2], torch.atan2(xp[..., 3:4],
+                                                   xp[..., 2:3])], -1)
 
-    def dot_plan(self, t: int):
+    def dot_plan(self, t):
         """Keeps the reference's angular-rate expression, including its
         (cdot - sdot) numerator, for trajectory parity."""
         ts = self._target_step(t)
         prev_t, prev_x, cp_t, cp_x = self._interval(ts)
         xdiff = (cp_x - prev_x) / ((cp_t - prev_t) * self.dt)
-        wterm = (xdiff[2:3] - xdiff[3:4]) / torch.sum(xdiff[2:4] ** 2)
-        return torch.cat([xdiff[:2], wterm])
+        wterm = (xdiff[..., 2:3] - xdiff[..., 3:4]) / torch.sum(
+            xdiff[..., 2:4] ** 2, -1, keepdim=True)
+        return torch.cat([xdiff[..., :2], wterm], -1)
 

@@ -1,8 +1,9 @@
-"""The pendulum online-learning experiment, batched over episodes: start
-near theta = 7 pi / 12, an epsilon-greedy LQR reference on the learned
-model, a learned relative-degree-2 CBC SOCP keeping theta out of the
-wedge around pi / 4, and the dynamics (drift and actuation) learned from
-scratch by a full-rank MVGP.
+"""The pendulum online-learning experiment, batched over episodes or as
+one episode: start near theta = 7 pi / 12, an epsilon-greedy LQR
+reference on the learned model, a learned relative-degree-2 CBC SOCP
+keeping theta out of the wedge around pi / 4, and the dynamics (drift
+and actuation) learned from scratch by a full-rank MVGP.  Also the data
+samplers of the dynamics-learning experiments and their error measure.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from ..control.secondary import EpsilonGreedyController, LQRController
 from ..models.dynamics import (LearnedDynState, LearnedShiftInvariantDynamics,
                                PendulumDynamics, ZeroDynamics, where_tree)
 from ..models.mvgp import make_mvgp
-from ..sim.rollout import _stack_steps, fit_segments
+from ..sim.rollout import _stack_steps, first_episode, fit_segments
 
 THETA0 = 7 * math.pi / 12
 
@@ -140,6 +141,30 @@ def run_pendulum_online_batch(sim: PendulumOnlineSim, x0s,
     return PendulumOutputs(*_stack_steps(ys))
 
 
+def run_pendulum_online_learning(sim: PendulumOnlineSim, theta0=THETA0,
+                                 omega0=0.0,
+                                 generator: Optional[torch.Generator] = None,
+                                 state0: Optional[LearnedDynState] = None,
+                                 draws: Optional[torch.Tensor] = None,
+                                 noise: Optional[torch.Tensor] = None
+                                 ) -> PendulumOutputs:
+    """One episode from (theta0, omega0), run as
+    `run_pendulum_online_batch` at B = 1: outputs (T, ...) without the
+    batch axis (X, U, Xdot and the info fields).
+
+    generator: the initial weights, the reservoir draws and the
+    exploration uniforms (default: a generator seeded with 0 on
+    sim.device).  state0: an initial learner state (episode axis 1).
+    draws (T,): reservoir draws; noise (T, 1): exploration uniforms on
+    [0, 1); each replaces the generator's."""
+    if generator is None:
+        generator = torch.Generator(device=sim.device).manual_seed(0)
+    return first_episode(run_pendulum_online_batch(
+        sim, [[theta0, omega0]], generator, state0,
+        None if draws is None else draws[:, None],
+        None if noise is None else noise[:, None]))
+
+
 def pendulum_damage_fraction(theta):
     """Fraction of steps (over the last axis) with 0 < theta < pi / 4,
     theta wrapped to [-pi, pi): the damage indicator of the reference
@@ -157,3 +182,66 @@ def pendulum_wedge_fraction(theta, theta_c=math.pi / 4,
     d = torch.abs(theta - theta_c)
     d = torch.minimum(d, 2 * math.pi - d)
     return (d < delta_col).to(theta.dtype).mean(-1)
+
+
+def _uniform(u, lo, hi):
+    """Uniforms on [0, 1) mapped to [lo, hi) as jax.random.uniform maps
+    its own."""
+    return torch.clamp(u * (hi - lo) + lo, min=lo)
+
+
+def sample_iid_pendulum(generator: Optional[torch.Generator], n: int,
+                        x_range=(-math.pi, math.pi), w_range=(-3.0, 3.0),
+                        u_range=(-10.0, 10.0), dtype=torch.float32,
+                        uniforms: Optional[torch.Tensor] = None):
+    """n i.i.d. samples (X (n, 2), U (n, 1), Xdot (n, 2)) of the true
+    pendulum: theta, omega and u uniform on their ranges, xdot exact.
+    uniforms (n, 3) on [0, 1) (theta, omega, u) replace the generator's
+    draws, on the generator's device."""
+    if uniforms is None:
+        uniforms = torch.rand((n, 3), generator=generator, dtype=dtype,
+                              device=generator.device)
+    X = torch.stack([_uniform(uniforms[:, 0], *x_range),
+                     _uniform(uniforms[:, 1], *w_range)], -1)
+    U = _uniform(uniforms[:, 2:], *u_range)
+    pend = PendulumDynamics()
+    return X, U, pend.f_func(X) + (pend.g_func(X) @ U[..., None])[..., 0]
+
+
+def sample_pendulum_data(numSteps=2000, dt=1e-2, theta0=3 * math.pi / 4,
+                         omega0=-0.01,
+                         generator: Optional[torch.Generator] = None,
+                         uniforms: Optional[torch.Tensor] = None,
+                         device="cuda", dtype=torch.float32):
+    """A rollout of the random controller u = m g sin(theta) (0.6 + 0.8 v),
+    v uniform on [0, 1), collected as (X (T, 2), U (T, 1), Xdot (T, 2))
+    with the exact xdot.  uniforms (T,) replace the generator's v
+    (default: a generator seeded with 0 on `device`)."""
+    if uniforms is None:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        uniforms = torch.rand((numSteps,), generator=generator, dtype=dtype,
+                              device=device)
+    pend = PendulumDynamics()
+    x = torch.tensor([[theta0, omega0]], dtype=uniforms.dtype,
+                     device=uniforms.device)
+    X, U, Xdot = [], [], []
+    for t in range(numSteps):
+        u = (pend.mass * pend.gravity * torch.sin(x[:, :1])
+             * (uniforms[t] * 0.8 + 0.6))
+        x_next, xdot = pend.step(x, u, dt)
+        X.append(x)
+        U.append(u)
+        Xdot.append(xdot)
+        x = x_next
+    return torch.cat(X), torch.cat(U), torch.cat(Xdot)
+
+
+def variance_weighted_error(mean_flat, var_flat, true_flat):
+    """sqrt of the mean over a test batch of (F_hat - F)^T Var^{-1}
+    (F_hat - F): mean_flat (N D,), var_flat (N, D, D), true_flat (N, D)."""
+    N, D = true_flat.shape
+    diff = mean_flat.reshape(N, D) - true_flat
+    L = torch.linalg.cholesky(var_flat)
+    sols = torch.cholesky_solve(diff[..., None], L)[..., 0]
+    return torch.sqrt(torch.sum(diff * sols) / N)

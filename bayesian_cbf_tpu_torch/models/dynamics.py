@@ -87,6 +87,14 @@ class AckermannDrive(NamedTuple):
     def F_func(self, x):
         return torch.cat([self.f_func(x)[..., None], self.g_func(x)], -1)
 
+    def F_jac(self, x):
+        """d F[i, j] / d x_a: (B, n, 1+m, n); only theta enters F."""
+        J = x.new_zeros((x.shape[0], 3, 3, 3))
+        th = x[:, 2]
+        J[:, 0, 1, 2] = -torch.sin(th)
+        J[:, 1, 1, 2] = torch.cos(th)
+        return J
+
     def step(self, x, u, dt):
         xdot = self.f_func(x) + (self.g_func(x) @ u[..., None])[..., 0]
         return x + xdot * dt, xdot
@@ -137,6 +145,13 @@ class PendulumDynamics(NamedTuple):
 
     def F_func(self, x):
         return torch.cat([self.f_func(x)[..., None], self.g_func(x)], -1)
+
+    def F_jac(self, x):
+        """d F[i, j] / d x_a: (B, n, 1+m, n); g is constant."""
+        J = x.new_zeros((x.shape[0], 2, 2, 2))
+        J[:, 0, 0, 1] = 1.0
+        J[:, 1, 0, 0] = -(self.gravity / self.length) * torch.cos(x[:, 0])
+        return J
 
     def step(self, x, u, dt):
         xdot = self.f_func(x) + (self.g_func(x) @ u[..., None])[..., 0]
@@ -220,18 +235,23 @@ class LearnedShiftInvariantDynamics(NamedTuple):
         with vec F(x) ~ N(vec FT^T, Bk kron A)."""
         md = self.mean_dynamics
         if not self.enable_learning:
-            batch = x.shape[0]
-            diag_A = getattr(md, "kernel_diag_A", (1.0,) * self.gp.x_dim)
-            A = torch.diag(torch.tensor(diag_A, dtype=x.dtype,
-                                        device=x.device))
-            Bk = torch.eye(1 + self.gp.u_dim, dtype=x.dtype, device=x.device)
-            return (md.F_func(x), Bk.expand(batch, -1, -1),
-                    A.expand(batch, -1, -1))
+            Bk, A = self._prior_covariances(x)
+            return md.F_func(x), Bk, A
         xs = self._shift_inv(x)
         FT = md.F_func(x) + self.gp.fT_post(state.params, state.data,
                                             state.cache, xs)
         Bk = self.gp.Bk_single(state.params, state.data, state.cache, xs, xs)
         return FT, Bk, state.params.A
+
+    def _prior_covariances(self, x):
+        """(Bk = I (B, 1+m, 1+m), A = diag(kernel_diag_A) (B, n, n)) of
+        the mean dynamics alone (A = I where they name no kernel_diag_A)."""
+        batch = x.shape[0]
+        diag_A = getattr(self.mean_dynamics, "kernel_diag_A",
+                         (1.0,) * self.gp.x_dim)
+        A = torch.diag(torch.tensor(diag_A, dtype=x.dtype, device=x.device))
+        Bk = torch.eye(1 + self.gp.u_dim, dtype=x.dtype, device=x.device)
+        return Bk.expand(batch, -1, -1), A.expand(batch, -1, -1)
 
     def moment_derivatives(self, state: LearnedDynState, x):
         """Posterior moments with their x-derivatives at states x (B, n),
@@ -247,11 +267,16 @@ class LearnedShiftInvariantDynamics(NamedTuple):
             A  (B, n, n)            task output covariance
 
         The mean dynamics supply F_func and its Jacobian F_jac.  With shift
-        invariance the zeroed coordinates carry no derivative."""
-        if not self.enable_learning:
-            raise NotImplementedError(
-                "moment_derivatives of the mean dynamics alone is not ported")
+        invariance the zeroed coordinates carry no derivative.  Without
+        learning: the mean dynamics' F and F_jac, Bk = I, zero D1 and D2,
+        A = diag(kernel_diag_A)."""
         md = self.mean_dynamics
+        if not self.enable_learning:
+            Bk, A = self._prior_covariances(x)
+            n, mh = self.gp.x_dim, 1 + self.gp.u_dim
+            return (md.F_func(x), md.F_jac(x), Bk,
+                    x.new_zeros((x.shape[0], n, mh, mh)),
+                    x.new_zeros((x.shape[0], n, n, mh, mh)), A)
         fT, dfT, Bk, D1, D2 = self.gp.posterior_derivatives(
             state.params, state.data, state.cache, self._shift_inv(x))
         if self.shift_invariant:

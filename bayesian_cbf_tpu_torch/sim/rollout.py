@@ -82,16 +82,17 @@ def _stack_steps(ys):
     return type(first)(*vals) if hasattr(first, "_fields") else tuple(vals)
 
 
-def simulate_unicycle_batch(sim: UnicycleSim, x0s: torch.Tensor,
-                            generator: Optional[torch.Generator] = None,
-                            state0: Optional[LearnedDynState] = None,
-                            draws: Optional[torch.Tensor] = None
-                            ) -> RolloutOutputs:
-    """Run B episodes from x0s (B, n).
+def first_episode(tree):
+    """Episode 0 of a batched tree of tensors (None leaves stay None)."""
+    if tree is None or isinstance(tree, torch.Tensor):
+        return None if tree is None else tree[0]
+    vals = [first_episode(v) for v in tree]
+    return type(tree)(*vals) if hasattr(tree, "_fields") else type(tree)(vals)
 
-    generator: the source of the initial weights and the reservoir draws.
-    state0: an initial learner state to start from instead of a fresh one.
-    draws: (T, B) int reservoir draws to use instead of `generator`."""
+
+def _rollout(sim: UnicycleSim, x0s, generator, state0, draws):
+    """The batched loop: (RolloutOutputs (B, T, ...), final learner
+    state)."""
     lrn = sim.learned_dynamics
     if state0 is None:
         _, states, warms = sim.init_state(x0s, generator)
@@ -126,4 +127,53 @@ def simulate_unicycle_batch(sim: UnicycleSim, x0s: torch.Tensor,
             states = where_tree(states.count_res > 0, fit(states), states)
             fit_event += 1
     Xs, U, Xdot, info, knl = _stack_steps(ys)
-    return RolloutOutputs(X=Xs, U=U, Xdot=Xdot, info=info, knl=knl)
+    return RolloutOutputs(X=Xs, U=U, Xdot=Xdot, info=info, knl=knl), states
+
+
+def simulate_unicycle_batch(sim: UnicycleSim, x0s: torch.Tensor,
+                            generator: Optional[torch.Generator] = None,
+                            state0: Optional[LearnedDynState] = None,
+                            draws: Optional[torch.Tensor] = None
+                            ) -> RolloutOutputs:
+    """Run B episodes from x0s (B, n).
+
+    generator: the source of the initial weights and the reservoir draws.
+    state0: an initial learner state to start from instead of a fresh one.
+    draws: (T, B) int reservoir draws to use instead of `generator`."""
+    return _rollout(sim, x0s, generator, state0, draws)[0]
+
+
+def simulate_unicycle_with_state(sim: UnicycleSim, x0,
+                                 generator: Optional[torch.Generator] = None,
+                                 state0: Optional[LearnedDynState] = None,
+                                 draws: Optional[torch.Tensor] = None):
+    """One episode from x0 (n,) (on the planner's device, in its dtype),
+    run as `simulate_unicycle_batch` at B = 1: (RolloutOutputs (T, ...)
+    without the batch axis, the final learner state with its episode axis
+    of 1, which `state0` takes back).  The refits follow the batched
+    schedule: a fit after every step t that is a positive multiple of
+    train_every_n_steps, for a non-empty reservoir, the first event
+    `fit_now_first`, later ones `fit_now_warm`.
+
+    generator: the initial weights and the reservoir draws (default: a
+    generator seeded with 0 on the planner's device).  state0: an initial
+    learner state (episode axis 1) instead of a fresh one.  draws: (T,)
+    int reservoir draws to use instead of `generator`'s."""
+    p0 = sim.planner.p0
+    x0s = torch.as_tensor(x0, dtype=p0.dtype, device=p0.device)[None]
+    if generator is None:
+        generator = torch.Generator(device=p0.device).manual_seed(0)
+    out, state = _rollout(sim, x0s, generator, state0,
+                          None if draws is None else draws[:, None])
+    return first_episode(out), state
+
+
+def simulate_unicycle(sim: UnicycleSim, x0,
+                      generator: Optional[torch.Generator] = None,
+                      state0: Optional[LearnedDynState] = None,
+                      draws: Optional[torch.Tensor] = None
+                      ) -> RolloutOutputs:
+    """One episode from x0 (n,): `simulate_unicycle_with_state` without
+    the final learner state; outputs (T, ...)."""
+    return simulate_unicycle_with_state(sim, x0, generator, state0,
+                                        draws)[0]

@@ -30,6 +30,13 @@ Phases (each raises on failure; nothing is caught):
                  event kernel at n = 200 and 50, and timed beside it.
                  Run (c) must repeat its accepted rungs and outcomes to
                  the digit (REPEATED): the Gram gives the same bits.
+                 At B = 1 (the single episodes of phase 7): kernels 1 and
+                 2 on a trajectory Gram and an SPD matrix (1, 200), and
+                 the IPM on 256 problems launched one at a time (the mean
+                 CBF's step-0 half-spaces, dims (4, 1, 1, 1), and the
+                 pendulum's step-0 cones), each held to the bits of the
+                 same problem in a batched launch and to the bars of the
+                 batched checks, with times and bounds at B = 1.
   4. main     -- the batched unicycle learn-and-control loop (B=256
                  episodes, K=200, 2000 steps, bench.py's configuration)
                  through bench_torch.py's protocol: a cold rollout and a
@@ -47,10 +54,21 @@ Phases (each raises on failure; nothing is caught):
                  reference schedule), cold and warm like main, with launch
                  counts, the outcome gates of scripts/check_outcomes.py,
                  the accepted rungs, and ms and device operations per step.
+  7. outcomes -- the four README unicycle experiments, the chance-
+                 constraint audit of the Bayes-CBF run and the single
+                 pendulum episode (B = 1, their full configurations)
+                 through the functions of scripts/check_outcomes_torch.py:
+                 outcomes, walls, launch counts (held to the schedule's),
+                 accepted rungs, and its verdicts collides, safe,
+                 feasible_steps_respect_cbc, learning_passes,
+                 no_learning_stuck and pendulum_online_no_damage, all
+                 required true.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
+import importlib.util
 import json
+import os
 import time
 
 import numpy as np
@@ -293,6 +311,69 @@ def _check_chol_kernels(dev):
     return out
 
 
+def _check_chol_kernels_b1(dev, n=200):
+    """Kernels 1 and 2 at B = 1, as the single episodes' fits and cache
+    refreshes launch them (one block): the bars of the batched checks on
+    a trajectory Gram (1, n), agreement with plain on an SPD matrix, the
+    bits of the same matrix in a launch over 256 on both, and the times of
+    the kernel, plain, the library call and the bound at B = 1."""
+    from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
+    f64 = torch.float64
+    K = torch.tensor(_trajectory_grams(256, n, seed=7), dtype=torch.float32,
+                     device=dev)
+    S = torch.tensor(_spd(256, n, 1), dtype=torch.float32, device=dev)
+    K1, S1 = K[:1].contiguous(), S[:1].contiguous()
+    K64, eye = K1.double(), torch.eye(n, dtype=f64, device=dev)
+    out = {}
+    for key, fn, plain in (("kinv_logdet", ck.kinv_logdet,
+                            ck.kinv_logdet_plain),
+                           ("chol_linv", ck.chol_linv, ck.chol_linv_plain)):
+        a, b = fn(K1)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(a).all() & torch.isfinite(b).all())
+        if key == "kinv_logdet":
+            resid = float((a.double() @ K64 - eye).abs().max())
+            lderr = float((b.double() - torch.linalg.slogdet(K64)[1])
+                          .abs().max())
+            bars = f"max|Kinv K - I| {resid:.3e}, logdet err {lderr:.3e}"
+            ok = finite and resid < 5e-2 and lderr < 0.5
+            bound = _kinv_logdet_bound(1, n)
+            library_ms = _cuda_ms(lambda: torch.linalg.inv_ex(K1), 20)
+        else:
+            L = a.double()
+            r_inv = float((b.double() @ L - eye).abs().max())
+            r_fac = float((L @ L.transpose(-1, -2) - K64).abs().max()
+                          / K64.abs().max())
+            bars = (f"max|Linv L - I| {r_inv:.3e}, max|LL^T-K|/max|K| "
+                    f"{r_fac:.3e}")
+            ok = finite and r_inv < 5e-2 and r_fac < 1e-5
+            bound, library_ms = _chol_linv_bound(1, n), None
+        same = {name: _same_bits(fn(A[:1].contiguous()),
+                                 [t[:1] for t in fn(A)])
+                for name, A in (("trajectory", K), ("SPD", S))}
+        got, want = fn(S1), plain(S1)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        rel = max(float((g - w).abs().max() / w.abs().max())
+                  for g, w in zip(got, want))
+        ms = _cuda_ms(lambda: fn(K1), 50)
+        device_ms = _device_ms(lambda: fn(K1), f"{key}_kernel", 50)
+        plain_ms = _cuda_ms(lambda: plain(K1), 20)
+        print(f"[{key} B=1] trajectory Gram (1, {n}): finite={finite} {bars}; "
+              f"SPD: max abs err vs plain {err:.3e}, relative {rel:.3e}; "
+              f"bits of the same matrix in a launch over 256: {same}; kernel "
+              f"{ms:.4f} ms per call, {device_ms:.4f} ms of device time per "
+              f"launch, plain {plain_ms:.3f} ms, library {library_ms} ms, "
+              f"bound {bound['bound_ms']:.6f} ms ({bound['bound_by']})",
+              flush=True)
+        _require(ok, f"{key} B=1 fails the trajectory Gram's bars: {bars}")
+        _require(rel < 1e-4, f"{key} B=1 disagrees with plain: {rel}")
+        _require(all(same.values()),
+                 f"{key} B=1: other bits than in a batched launch: {same}")
+        out[key] = dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                        plain_ms=plain_ms, library_ms=library_ms, **bound)
+    return out
+
+
 # kernel 1 at (256, 200) before it was rebuilt on the blocked factor (one
 # column at a time, three block-wide barriers each), NVIDIA H100 80GB HBM3
 # at 700 W
@@ -425,17 +506,21 @@ def _random_cones(B, seed, nx=4, dims=(4, 4, 4, 1)):
     return c, G, h
 
 
-def _step0_cones(dev, x0s, seed):
-    """The main path's real step-0 SOCPs (prior model, fresh weights)."""
+def _step0_cones(dev, x0s, seed, sim=None, want_dims=None):
+    """A unicycle path's real step-0 SOCPs (prior model, fresh weights):
+    the main path's, or `sim`'s, whose cone dimensions must be
+    `want_dims`."""
     from bayesian_cbf_tpu_torch.control.bayes_controller import controller_socp
     from bayesian_cbf_tpu_torch.solvers.socp import _pad_cones
-    sim = bt.unicycle_sim(dev)
+    sim = sim or bt.unicycle_sim(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = sim.learned_dynamics.init_state(x0s.shape[0], gen, dev,
                                             torch.float32)
     mom = sim.learned_dynamics.moments(state, x0s)
     cobj, G, h, dims, _ = controller_socp(sim.controller, sim.clf, sim.cbfs,
                                           sim.planner, mom, x0s, 0)
+    _require(want_dims is None or dims == want_dims,
+             f"step-0 cone dimensions {dims}, not {want_dims}")
     Gp, hp = _pad_cones(G, h, dims)
     return cobj.expand(x0s.shape[0], -1).contiguous(), Gp, hp
 
@@ -459,114 +544,14 @@ def _check_ipm_kernel(dev, label, rand, real, many):
     (15), against the plain version and an f64 solve; then on `many`, a
     larger batch of random cones that fills no whole number of blocks."""
     from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
-    from bayesian_cbf_tpu_torch.solvers.socp import _interior_shift
     B, C, d, nx = real[1].shape
-    f32, f64 = torch.float32, torch.float64
-    e = torch.zeros((B, C, d), dtype=f32, device=dev)
-    e[..., 0] = 1.0
-    cold = [torch.zeros((B, nx), dtype=f32, device=dev), e, e]
-    rel = lambda a, b: (a - b).abs() / (1.0 + b.abs())
-    # median and 90th percentile over problems
-    quant = lambda v: [float(t) for t in torch.quantile(
-        v.double(), torch.tensor([0.5, 0.9], dtype=f64, device=dev))]
-    worst_err = 0.0
-    for kind, prob in (("random", rand), ("real", real)):
-        for iters in (25, 15):
-            if iters == 25:
-                start = cold
-            else:
-                # a warm start: the cold solution of the problem, shifted
-                # into the interior, applied to data moved by 1e-3
-                x, S, Z = ik.ipm_plain(*prob, *cold, 25, 1e-10)
-                start = [x, _interior_shift(S), _interior_shift(Z)]
-                prob = [prob[0], prob[1], prob[2] + 1e-3 * e]
-            got = ik.ipm(*prob, *start, iters, 1e-10)
-            want = ik.ipm_plain(*prob, *start, iters, 1e-10)
-            torch.cuda.synchronize()
-            sg = ik.score_padded(*prob, *got)
-            sw = ik.score_padded(*prob, *want)
-            n_k, n_p = int((sg < 1e-3).sum()), int((sw < 1e-3).sum())
-            both = (sg < 1e-3) & (sw < 1e-3)
-            dx = rel(got[0], want[0]).amax(-1)
-            tag = f"[ipm {label} {kind} iters={iters}]"
-            line = [f"{tag} median KKT score kernel {float(sg.median()):.3e} "
-                    f"plain {float(sw.median()):.3e}; score < 1e-3: kernel "
-                    f"{n_k}/{B}, plain {n_p}/{B}, both {int(both.sum())}"]
-            _require(float(sg.median()) <= 2.0 * float(sw.median()),
-                     f"{tag}: kernel score above 2x plain")
-            # the score's complementarity term is absolute, so f32 stalls
-            # above 1e-3 where the optimal cost is large: the kernel must
-            # converge wherever the plain version does, within 5%
-            _require(n_k >= n_p - B // 20,
-                     f"{tag}: fewer converged problems than plain")
-            # the optimal values agree where both converge, held wherever
-            # the plain version converges on half the problems (in f32 it
-            # does not on the pendulum's real cones: 5 of 256, cold)
-            if n_p >= B // 2:
-                _require(int(both.sum()) >= B // 2,
-                         f"{tag}: both converge on fewer than half")
-                cost = lambda x: (prob[0] * x).sum(-1)
-                rel_c = float(rel(cost(got[0]), cost(want[0]))[both].max())
-                line.append(f"on those both: max rel |dx| "
-                            f"{float(dx[both].max()):.3e}, max rel |d cost| "
-                            f"{rel_c:.3e}")
-                _require(rel_c < 1e-3, f"{tag}: optimal value disagrees "
-                         f"({rel_c})")
-                if kind == "real":
-                    worst_err = max(worst_err, float(
-                        (got[0] - want[0]).abs().amax(-1)[both].max()))
-            else:
-                line.append("values not compared: the plain version "
-                            "converges on fewer than half")
-            if iters == 25:
-                # from the cold start, f32 roundoff soon separates the two
-                # iterates; each is held against the f64 run of the same
-                # iterations where that converged: the kernel's median and
-                # 90th-percentile distance no farther than twice the plain
-                # f32 version's
-                exact = ik.ipm_plain(*(a.double() for a in prob + start),
-                                     iters, 1e-10)
-                conv = ik.score_padded(*(a.double() for a in prob),
-                                       *exact) < 1e-6
-                _require(int(conv.sum()) >= B // 2,
-                         f"{tag}: the f64 reference converged on fewer than "
-                         f"half")
-                far_k = rel(got[0].double(), exact[0]).amax(-1)[conv]
-                far_p = rel(want[0].double(), exact[0]).amax(-1)[conv]
-                dk, dp = quant(far_k), quant(far_p)
-                qx = quant(dx)
-                qs = quant((sg.double() / sw.double()).log10().abs())
-                line.append(f"kernel vs plain over all {B}, median / 90%: rel "
-                            f"|dx| {qx[0]:.3e} / {qx[1]:.3e}, |log10 score "
-                            f"ratio| {qs[0]:.3e} / {qs[1]:.3e}")
-                line.append(f"rel |x - x_f64| on the {int(conv.sum())} f64-"
-                            f"converged, median / 90%: kernel {dk[0]:.3e} / "
-                            f"{dk[1]:.3e}, plain f32 {dp[0]:.3e} / "
-                            f"{dp[1]:.3e}; farther than 0.1 (stalled): "
-                            f"kernel {int((far_k > 0.1).sum())}, plain "
-                            f"{int((far_p > 0.1).sum())}")
-                _require(all(k <= max(2.0 * p, 1e-4) for k, p in zip(dk, dp)),
-                         f"{tag}: x farther from f64 than plain f32 "
-                         f"({dk} vs {dp})")
-            else:
-                # from a warm start the two iterates stay together: held
-                # problem by problem, on all B; the controllers' SOCPs have
-                # a unique optimum, random ones may have an optimal face
-                q = quant(dx)
-                line.append(f"rel |dx| over all {B}, median / 90% / max: "
-                            f"{q[0]:.3e} / {q[1]:.3e} / {float(dx.max()):.3e}")
-                _require(q[1] < 1e-3, f"{tag}: iterates disagree ({q})")
-                if kind == "real":
-                    _require(float(dx.max()) < 1e-2,
-                             f"{tag}: iterates disagree ({float(dx.max())})")
-                    worst_err = max(worst_err,
-                                    float((got[0] - want[0]).abs().max()))
-            print("; ".join(line), flush=True)
+    _ipm_against_plain(dev, label, "random", rand, ik.ipm)
+    worst_err = _ipm_against_plain(dev, label, "real", real, ik.ipm)
+    cold = _ipm_cold(dev, real)
     _check_ipm_ragged_batch(dev, label, many)
     ms = _cuda_ms(lambda: ik.ipm(*real, *cold, 25, 1e-10), 50)
     plain_ms = _cuda_ms(lambda: ik.ipm_plain(*real, *cold, 25, 1e-10), 5)
-    bound = _bound(_ipm_flops(B, nx, C, d, 25),
-                   F32 * B * (3 * nx + C * d * nx + 5 * C * d))
+    bound = _ipm_bound(B, nx, C, d)
     usage = _usage("ipm", f"ipm_kernel<{nx}, {C}, {d}>")
     print(f"[ipm {label}] (nx, C, d) = ({nx}, {C}, {d}), B={B}, 25 "
           f"iterations: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
@@ -577,6 +562,170 @@ def _check_ipm_kernel(dev, label, rand, real, many):
              f"[ipm {label}]: the kernel spills ({usage})")
     return dict(max_abs_err=worst_err, ms=ms, plain_ms=plain_ms,
                 library_ms=None, **bound, **usage)
+
+
+def _ipm_cold(dev, prob):
+    """The solver's cold start (x = 0, S = Z = e per cone) for `prob`."""
+    B, C, d, nx = prob[1].shape
+    e = torch.zeros((B, C, d), dtype=torch.float32, device=dev)
+    e[..., 0] = 1.0
+    return [torch.zeros((B, nx), dtype=torch.float32, device=dev), e, e]
+
+
+def _ipm_bound(B, nx, C, d):
+    return _bound(_ipm_flops(B, nx, C, d, 25),
+                  F32 * B * (3 * nx + C * d * nx + 5 * C * d))
+
+
+def _ipm_against_plain(dev, label, kind, prob, solve):
+    """`solve` (the kernel's wrapper, or a route through it) on a batch of
+    problems `prob` of one kind ("random" or a path's "real" cones), cold
+    (25 iterations) and warm-started (15), against the plain version and
+    an f64 solve; the largest |x - x_plain| where both converge (real
+    cones)."""
+    from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
+    from bayesian_cbf_tpu_torch.solvers.socp import _interior_shift
+    B = prob[1].shape[0]
+    f64 = torch.float64
+    cold = _ipm_cold(dev, prob)
+    e = cold[1]
+    rel = lambda a, b: (a - b).abs() / (1.0 + b.abs())
+    # median and 90th percentile over problems
+    quant = lambda v: [float(t) for t in torch.quantile(
+        v.double(), torch.tensor([0.5, 0.9], dtype=f64, device=dev))]
+    worst_err = 0.0
+    for iters in (25, 15):
+        if iters == 25:
+            start = cold
+        else:
+            # a warm start: the cold solution of the problem, shifted
+            # into the interior, applied to data moved by 1e-3
+            x, S, Z = ik.ipm_plain(*prob, *cold, 25, 1e-10)
+            start = [x, _interior_shift(S), _interior_shift(Z)]
+            prob = [prob[0], prob[1], prob[2] + 1e-3 * e]
+        got = solve(*prob, *start, iters, 1e-10)
+        want = ik.ipm_plain(*prob, *start, iters, 1e-10)
+        torch.cuda.synchronize()
+        sg = ik.score_padded(*prob, *got)
+        sw = ik.score_padded(*prob, *want)
+        n_k, n_p = int((sg < 1e-3).sum()), int((sw < 1e-3).sum())
+        both = (sg < 1e-3) & (sw < 1e-3)
+        dx = rel(got[0], want[0]).amax(-1)
+        tag = f"[ipm {label} {kind} iters={iters}]"
+        line = [f"{tag} median KKT score kernel {float(sg.median()):.3e} "
+                f"plain {float(sw.median()):.3e}; score < 1e-3: kernel "
+                f"{n_k}/{B}, plain {n_p}/{B}, both {int(both.sum())}"]
+        _require(float(sg.median()) <= 2.0 * float(sw.median()),
+                 f"{tag}: kernel score above 2x plain")
+        # the score's complementarity term is absolute, so f32 stalls
+        # above 1e-3 where the optimal cost is large: the kernel must
+        # converge wherever the plain version does, within 5%
+        _require(n_k >= n_p - B // 20,
+                 f"{tag}: fewer converged problems than plain")
+        # the optimal values agree where both converge, held wherever
+        # the plain version converges on half the problems (in f32 it
+        # does not on the pendulum's real cones: 5 of 256, cold)
+        if n_p >= B // 2:
+            _require(int(both.sum()) >= B // 2,
+                     f"{tag}: both converge on fewer than half")
+            cost = lambda x: (prob[0] * x).sum(-1)
+            rel_c = float(rel(cost(got[0]), cost(want[0]))[both].max())
+            line.append(f"on those both: max rel |dx| "
+                        f"{float(dx[both].max()):.3e}, max rel |d cost| "
+                        f"{rel_c:.3e}")
+            _require(rel_c < 1e-3, f"{tag}: optimal value disagrees "
+                     f"({rel_c})")
+            if kind == "real":
+                worst_err = max(worst_err, float(
+                    (got[0] - want[0]).abs().amax(-1)[both].max()))
+        else:
+            line.append("values not compared: the plain version "
+                        "converges on fewer than half")
+        if iters == 25:
+            # from the cold start, f32 roundoff soon separates the two
+            # iterates; each is held against the f64 run of the same
+            # iterations where that converged: the kernel's median and
+            # 90th-percentile distance no farther than twice the plain
+            # f32 version's
+            exact = ik.ipm_plain(*(a.double() for a in prob + start),
+                                 iters, 1e-10)
+            conv = ik.score_padded(*(a.double() for a in prob),
+                                   *exact) < 1e-6
+            _require(int(conv.sum()) >= B // 2,
+                     f"{tag}: the f64 reference converged on fewer than "
+                     f"half")
+            far_k = rel(got[0].double(), exact[0]).amax(-1)[conv]
+            far_p = rel(want[0].double(), exact[0]).amax(-1)[conv]
+            dk, dp = quant(far_k), quant(far_p)
+            qx = quant(dx)
+            qs = quant((sg.double() / sw.double()).log10().abs())
+            line.append(f"kernel vs plain over all {B}, median / 90%: rel "
+                        f"|dx| {qx[0]:.3e} / {qx[1]:.3e}, |log10 score "
+                        f"ratio| {qs[0]:.3e} / {qs[1]:.3e}")
+            line.append(f"rel |x - x_f64| on the {int(conv.sum())} f64-"
+                        f"converged, median / 90%: kernel {dk[0]:.3e} / "
+                        f"{dk[1]:.3e}, plain f32 {dp[0]:.3e} / "
+                        f"{dp[1]:.3e}; farther than 0.1 (stalled): "
+                        f"kernel {int((far_k > 0.1).sum())}, plain "
+                        f"{int((far_p > 0.1).sum())}")
+            _require(all(k <= max(2.0 * p, 1e-4) for k, p in zip(dk, dp)),
+                     f"{tag}: x farther from f64 than plain f32 "
+                     f"({dk} vs {dp})")
+        else:
+            # from a warm start the two iterates stay together: held
+            # problem by problem, on all B; the controllers' SOCPs have
+            # a unique optimum, random ones may have an optimal face
+            q = quant(dx)
+            line.append(f"rel |dx| over all {B}, median / 90% / max: "
+                        f"{q[0]:.3e} / {q[1]:.3e} / {float(dx.max()):.3e}")
+            _require(q[1] < 1e-3, f"{tag}: iterates disagree ({q})")
+            if kind == "real":
+                _require(float(dx.max()) < 1e-2,
+                         f"{tag}: iterates disagree ({float(dx.max())})")
+                worst_err = max(worst_err,
+                                float((got[0] - want[0]).abs().max()))
+        print("; ".join(line), flush=True)
+    return worst_err
+
+
+def _check_ipm_b1(dev, label, real):
+    """The IPM at B = 1, as the single episodes launch it: every problem
+    of a path's real cones launched alone (one block, seven of its eight
+    problem slots empty), held to the bits of the same problem in one
+    launch over the batch and, as a batch of results, to the bars of the
+    batched checks (on a subset they would read other quantiles: f32
+    stalls on ~7% of the pendulum's cold cones, kernel and plain on
+    different ones); the time of one problem alone (per call, and device
+    time per launch) against plain and the bound at B = 1."""
+    from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
+    n = real[1].shape[0]
+    tag = f"[ipm {label} B=1]"
+
+    def one_at_a_time(*args):
+        probs, rest = args[:6], args[6:]
+        got = [torch.cat(parts) for parts in zip(*(
+            ik.ipm(*(a[i:i + 1].contiguous() for a in probs), *rest)
+            for i in range(n)))]
+        _require(_same_bits(got, ik.ipm(*args)),
+                 f"{tag}: a problem launched alone gives other bits than in "
+                 f"a batched launch")
+        return got
+
+    worst_err = _ipm_against_plain(dev, f"{label} B=1", "real", real,
+                                   one_at_a_time)
+    _, C, d, nx = real[1].shape
+    one = [a[:1].contiguous() for a in real + _ipm_cold(dev, real)]
+    run = lambda: ik.ipm(*one, 25, 1e-10)
+    ms, device_ms = _cuda_ms(run, 50), _device_ms(run, "ipm_kernel", 50)
+    plain_ms = _cuda_ms(lambda: ik.ipm_plain(*one, 25, 1e-10), 5)
+    bound = _ipm_bound(1, nx, C, d)
+    print(f"{tag} {n} problems launched one at a time: the bits of the "
+          f"batched launch; one problem, 25 iterations: kernel {ms:.4f} ms "
+          f"per call, {device_ms:.4f} ms of device time per launch, plain "
+          f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.6f} ms "
+          f"({bound['bound_by']})", flush=True)
+    return dict(max_abs_err=worst_err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, library_ms=None, **bound)
 
 
 def _check_ipm_ragged_batch(dev, label, prob):
@@ -1013,6 +1162,13 @@ def _check_cholsolve_kernels(dev):
                 ("solve_with_factor", "solve_with_factor_kernel<1>"))}
 
 
+def _n_fits(lrn, T):
+    """Refits (and cache refreshes) of one rollout of T steps."""
+    from bayesian_cbf_tpu_torch.sim.rollout import fit_segments
+    return sum(f for _, _, f in fit_segments(T, lrn.train_every_n_steps,
+                                             lrn.enable_learning))
+
+
 def _expected_launches(lrn, T, warm_start):
     """Launches of each kernel that one rollout of T steps with learner
     `lrn` implies: one IPM per step, plus the step-0 warm start when the
@@ -1021,7 +1177,7 @@ def _expected_launches(lrn, T, warm_start):
     three factorizations (the jitter ladder) and, with fused_gram, one
     Gram per cache refresh."""
     gp = lrn.gp
-    n_fits = len(range(lrn.train_every_n_steps, T, lrn.train_every_n_steps))
+    n_fits = _n_fits(lrn, T)
     first = lrn.training_iter + (lrn.first_fit_refine_iter
                                  if lrn.first_fit_twostage else 0)
     warm = (lrn.training_iter_warm if lrn.warm_refits_differ
@@ -1118,8 +1274,7 @@ def _check_rollouts(label, record, warm_start):
           f"rung of the cache refreshes' jitter ladder (first / + 1e-5 scale "
           f"/ + 1e-2 scale) {record['refresh_rungs']}", flush=True)
     want = _expected_launches(lrn, T, warm_start)
-    refreshes = len(range(lrn.train_every_n_steps, T,
-                          lrn.train_every_n_steps))
+    refreshes = _n_fits(lrn, T)
     for r in record["rollouts"]:
         _require(r["launches"] == want,
                  f"{label}: launch counts {r['launches']} != {want}")
@@ -1339,21 +1494,103 @@ def phase_pendulum_profile(dev, x0s, steps=20):
                 parts=breakdown)
 
 
+def _check_outcomes_torch():
+    """scripts/check_outcomes_torch.py, loaded by path (scripts/ is not a
+    package)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "check_outcomes_torch.py")
+    spec = importlib.util.spec_from_file_location("check_outcomes_torch",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# the verdicts of scripts/check_outcomes.py that the single episodes decide
+OUTCOME_VERDICTS = ("collides", "safe", "feasible_steps_respect_cbc",
+                    "learning_passes", "no_learning_stuck",
+                    "pendulum_online_no_damage")
+
+
+def phase_outcomes(dev, card):
+    """The four README unicycle experiments and the single pendulum
+    episode (B = 1, their full configurations) through the functions of
+    scripts/check_outcomes_torch.py, each with its outcomes, wall (not a
+    benchmark), launch counts held to the schedule's and the accepted
+    rungs of its cache refreshes; then the verdicts they decide, each
+    required true.  Returns the launch counts per run."""
+    from bayesian_cbf_tpu_torch.models.mvgp import MVGP
+    co = _check_outcomes_torch()
+    fns = bt.counters()
+    runs = {name: (lambda name=name: co.unicycle_run(name, dev))
+            for name in co.UNICYCLE_RUNS}
+    runs["pendulum_online"] = lambda: co.pendulum_run(dev)
+    results, launches = {}, {}
+    for name, run in runs.items():
+        for fn in fns.values():
+            fn.launches = 0
+        MVGP.refresh_cache.rungs = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim, out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in fns.items()}
+        rungs = MVGP.refresh_cache.rungs
+        rungs = [0, 0, 0] if rungs is None else rungs.tolist()
+        lrn = getattr(sim, "learned_dynamics", None) or sim.learned
+        T = sim.numSteps
+        results[name] = (co.unicycle_result(name, sim, out)
+                         if name in co.UNICYCLE_RUNS else
+                         co.pendulum_result(out))
+        want = _expected_launches(
+            lrn, T, getattr(sim.controller, "warm_start", False))
+        print(f"[outcomes {name}] B=1 K={lrn.max_train} T={T}: wall {wall:.3f}"
+              f" s ({wall * 1e3 / T:.3f} ms per step, fits included) on "
+              f"{card}; launches ipm {counts['ipm']}, kinv_logdet "
+              f"{counts['kinv_logdet']}, chol_linv {counts['chol_linv']} "
+              f"(schedule: {want['ipm']}, {want['kinv_logdet']}, "
+              f"{want['chol_linv']}); accepted rungs of the cache refreshes "
+              f"{rungs}; outcomes {results[name]}", flush=True)
+        _require(counts == want,
+                 f"outcomes {name}: launch counts {counts} != {want}")
+        _require(sum(rungs) == _n_fits(lrn, T),
+                 f"outcomes {name}: accepted rungs {rungs} do not add up to "
+                 f"{_n_fits(lrn, T)} cache refreshes")
+        launches[name] = counts
+    verdicts = co.verdicts(results)
+    print(f"[outcomes] verdicts {verdicts}; not ported: {co.NOT_PORTED}",
+          flush=True)
+    _require(all(verdicts.get(k) is True for k in OUTCOME_VERDICTS),
+             f"outcome verdicts failed: {verdicts}")
+    _require(all(verdicts.values()), f"outcome verdicts failed: {verdicts}")
+    return launches
+
+
 def main():
     dev, card = phase_device()
     phase_build()
     x0s = bt.unicycle_x0s(dev)
     px0s = bt.pendulum_x0s(dev)
     chol = _check_chol_kernels(dev)
+    chol_b1 = _check_chol_kernels_b1(dev)
     cones = lambda B, seed, **kw: [
         torch.tensor(a, dtype=torch.float32, device=dev)
         for a in _random_cones(B, seed, **kw)]
     ipm = _check_ipm_kernel(dev, "(4, 4, 4)", cones(256, 0),
                             list(_step0_cones(dev, x0s, 1)), cones(1003, 4))
+    pend_cones = list(_pendulum_step0_cones(dev, px0s))
     ipm_p = _check_ipm_kernel(dev, "(4, 3, 3)",
-                              cones(256, 2, dims=(3, 3, 1)),
-                              list(_pendulum_step0_cones(dev, px0s)),
+                              cones(256, 2, dims=(3, 3, 1)), pend_cones,
                               cones(1003, 6, dims=(3, 3, 1)))
+    from bayesian_cbf_tpu_torch.experiments import unicycle as tu
+    collide = tu.make_ackermann_tracking_sim(**tu.EXPERIMENTS["mean_cbf"],
+                                             device=dev)
+    ipm["b1"] = _check_ipm_b1(dev, "(4, 4, 4) mean CBF", list(_step0_cones(
+        dev, x0s, 1, collide, want_dims=(4, 1, 1, 1))))
+    ipm_p["b1"] = _check_ipm_b1(dev, "(4, 3, 3)", pend_cones)
+    chol["kinv_logdet"]["b1"] = chol_b1["kinv_logdet"]
+    chol["chol_linv"]["b1"] = chol_b1["chol_linv"]
     gram = _check_gram_kernel(dev)
     sweep = _check_sweep_kernel(dev)
     dinv = _check_chol_dinv_kernel(dev)
@@ -1373,6 +1610,7 @@ def main():
         "main": main_rungs, "b": abc["b"][1], "c": abc["c"][1],
         **{f"pendulum {k}": v[1] for k, v in pend.items()}}
     profile_stats = phase_pendulum_profile(dev, px0s)
+    runs.update(phase_outcomes(dev, card))
 
     def entry(name, source, replaces, run, stats, counter=None):
         counter = counter or name

@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""The outcome gate of the PyTorch/CUDA port on one NVIDIA card: the
+qualitative outcomes of scripts/check_outcomes.py, with its thresholds,
+on the port.
+
+    python3 scripts/check_outcomes_torch.py
+
+Runs, at the experiments' full configurations (f32 on the card):
+  * the four README unicycle experiments, one episode each (2000 steps,
+    dt 0.001, K = 200, 100 Adam iterations, a refit every 400), and the
+    chance-constraint audit of the Bayes-CBF episode;
+  * a batch of 32 unicycle episodes with learning, starts perturbed by
+    0.05 N(0, 1) from STATE_START;
+  * one pendulum episode (`make_pendulum_online_sim(max_train=200)`: 250
+    steps, a refit every 10, 25 Adam iterations) and batches of 64
+    episodes, starts perturbed by 0.05 N(0, 1) from (7 pi / 12, 0), on the
+    reference schedule and with continuous updates (bench.py's
+    configuration).
+
+Prints one JSON object: `results`, `verdicts`, `not_ported` (verdicts of
+the JAX script that the port cannot run yet, with the reason; they count
+neither as passed nor toward `all_pass`), `all_pass` and `wall_s`.
+Results are not rounded before the thresholds.  Exit code 1 when a
+verdict fails.  It refuses to run without CUDA, takes no options and
+catches nothing.  `chip_smoke.py` loads this file by path and runs the
+single episodes through its functions.
+"""
+import json
+import math
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import bench_torch as bt  # noqa: E402
+
+UNICYCLE_RUNS = {
+    "mean_cbf": "unicycle_mean_cbf_collides_obstacle",
+    "bayes_cbf": "unicycle_bayes_cbf_safe_obstacle",
+    "learning": "unicycle_learning_helps_avoid_getting_stuck",
+    "no_learning": "unicycle_no_learning_gets_stuck",
+}
+
+NOT_PORTED = {
+    "pendulum_gt_safe": "not ported: the ground-truth QP solves 5 cones at "
+                        "(nx, C, d) = (3, 5, 3), and the IPM kernel holds at "
+                        "most four cones a problem (ROADMAP.md B.2); it "
+                        "counts neither as passed nor toward all_pass",
+}
+
+
+def unicycle_run(name, device):
+    """(sim, outputs (T, ...)) of one README experiment, seed 0."""
+    from bayesian_cbf_tpu_torch.experiments import unicycle as tu
+    return getattr(tu, UNICYCLE_RUNS[name])(device=device)
+
+
+def unicycle_result(name, sim, out):
+    """What the verdicts read of one unicycle episode; for the Bayes-CBF
+    run also its chance-constraint audit: the worst realized CBC margin
+    over the steps marked feasible and the median |margin|."""
+    from bayesian_cbf_tpu_torch.experiments import unicycle as tu
+    feas = out.info.feasible
+    res = dict(min_clearance=float(tu.min_obstacle_clearance(sim, out).min()),
+               goal_dist=float(tu.goal_distance(out)),
+               feasible=float(feas.to(out.X.dtype).mean()))
+    if name == "bayes_cbf":
+        mg = tu.realized_cbc_margins(sim, out)
+        res["min_feasible_cbc_margin"] = (float(mg[feas].min())
+                                          if bool(feas.any()) else math.nan)
+        res["cbc_margin_scale"] = float(torch.quantile(
+            mg.abs().flatten().double(), 0.5)) or 1.0
+    return res
+
+
+def pendulum_run(device):
+    """(sim, outputs (T, ...)) of one pendulum episode from
+    (7 pi / 12, 0), seed 0."""
+    from bayesian_cbf_tpu_torch.experiments import pendulum as tp
+    sim = tp.make_pendulum_online_sim(max_train=200, device=device)
+    return sim, tp.run_pendulum_online_learning(
+        sim, generator=torch.Generator(device=device).manual_seed(0))
+
+
+def pendulum_result(out):
+    from bayesian_cbf_tpu_torch.experiments import pendulum as tp
+    th = out.X[:, 0]
+    return dict(damage=float(tp.pendulum_damage_fraction(th)),
+                wedge_frac=float(tp.pendulum_wedge_fraction(th)),
+                theta_end=float(th[-1]),
+                feasible=float(out.info.feasible.to(th.dtype).mean()),
+                certified=float(out.info.certified.to(th.dtype).mean()),
+                finite=bool(torch.isfinite(out.X).all()))
+
+
+def batched_learning_result(device, B=32):
+    """`bench_torch.unicycle_outcomes` of B learning episodes."""
+    from bayesian_cbf_tpu_torch.experiments import unicycle as tu
+    from bayesian_cbf_tpu_torch.sim.rollout import simulate_unicycle_batch
+    sim = tu.make_ackermann_tracking_sim(**tu.EXPERIMENTS["learning"],
+                                         device=device)
+    x0 = np.asarray(tu.STATE_START)[None] + 0.05 * \
+        np.random.default_rng(0).normal(size=(B, 3))
+    out = simulate_unicycle_batch(
+        sim, torch.tensor(x0, dtype=torch.float32, device=device),
+        generator=torch.Generator(device=device).manual_seed(1))
+    return dict(B=B, **bt.unicycle_outcomes(sim, out))
+
+
+def pendulum_batched_result(device, continuous, B=64):
+    """`bench_torch.pendulum_outcomes` of B episodes on the reference
+    schedule or with continuous updates."""
+    from bayesian_cbf_tpu_torch.experiments.pendulum import (
+        run_pendulum_online_batch)
+    options = bt.PENDULUM_CONFIGS["continuous"] if continuous else {}
+    sim = bt.pendulum_sim(device, **options)
+    out = run_pendulum_online_batch(
+        sim, bt.pendulum_x0s(device, B),
+        generator=torch.Generator(device=device).manual_seed(5))
+    return dict(B=B, **bt.pendulum_outcomes(sim, out))
+
+
+def _pendulum_batch_safe(r):
+    return (r["mean_damage"] <= 0.01 and r["frac_damaged"] <= 0.05
+            and r["frac_wedge_gt_2pct"] <= 0.05 and r["finite"])
+
+
+# (verdict, the results it reads, the test), thresholds as in
+# scripts/check_outcomes.py
+VERDICTS = (
+    ("collides", ("mean_cbf",), lambda r: r["mean_cbf"]["min_clearance"] < 0),
+    ("safe", ("bayes_cbf",), lambda r: r["bayes_cbf"]["min_clearance"] > 0),
+    # the f32 feasibility gate must not admit a control that violates a
+    # safety cone beyond 1% of the typical margin
+    ("feasible_steps_respect_cbc", ("bayes_cbf",),
+     lambda r: r["bayes_cbf"]["min_feasible_cbc_margin"]
+     > -0.01 * r["bayes_cbf"]["cbc_margin_scale"]),
+    ("learning_passes", ("learning", "no_learning"),
+     lambda r: r["learning"]["goal_dist"] < r["no_learning"]["goal_dist"] - 1.0
+     and r["learning"]["goal_dist"] < 1.5),
+    ("no_learning_stuck", ("no_learning",),
+     lambda r: r["no_learning"]["goal_dist"] > 2.5),
+    ("batched_learning_passes", ("batched_learning",),
+     lambda r: r["batched_learning"]["mean_goal_distance"] < 1.5
+     and r["batched_learning"]["frac_within_1"] > 0.7
+     and r["batched_learning"]["min_clearance"] > 0
+     and r["batched_learning"]["finite"]),
+    ("pendulum_online_no_damage", ("pendulum_online",),
+     lambda r: r["pendulum_online"]["damage"] == 0.0
+     and r["pendulum_online"]["finite"]
+     and r["pendulum_online"]["wedge_frac"] <= 0.02
+     and (math.pi / 4 + math.pi / 8 - 0.02
+          < r["pendulum_online"]["theta_end"] < 1.9)),
+    ("pendulum_batched_safe", ("pendulum_batched",),
+     lambda r: _pendulum_batch_safe(r["pendulum_batched"])),
+    ("pendulum_batched_cu_safe", ("pendulum_batched_cu",),
+     lambda r: _pendulum_batch_safe(r["pendulum_batched_cu"])
+     and r["pendulum_batched_cu"]["feasible"] >= 0.95
+     and r["pendulum_batched_cu"]["min_final_theta"]
+     > math.pi / 4 + math.pi / 8),
+    ("feasibility_floor",
+     ("bayes_cbf", "learning", "pendulum_online", "pendulum_batched"),
+     lambda r: r["bayes_cbf"]["feasible"] >= 0.95
+     and r["learning"]["feasible"] >= 0.95
+     and r["pendulum_online"]["feasible"] >= 0.95
+     and r["pendulum_batched"]["feasible"] >= 0.95),
+)
+
+
+def verdicts(results):
+    """Each verdict whose results are all present, as a bool."""
+    return {name: bool(test(results)) for name, needs, test in VERDICTS
+            if all(k in results for k in needs)}
+
+
+def main():
+    dev, _ = bt.require_card("check_outcomes_torch")
+    from bayesian_cbf_tpu_torch.ops import _build
+    _build.build_all(_build.KERNEL_SOURCES)
+    t0 = time.perf_counter()
+    res = {name: unicycle_result(name, *unicycle_run(name, dev))
+           for name in UNICYCLE_RUNS}
+    res["batched_learning"] = batched_learning_result(dev)
+    res["pendulum_online"] = pendulum_result(pendulum_run(dev)[1])
+    res["pendulum_batched"] = pendulum_batched_result(dev, False)
+    res["pendulum_batched_cu"] = pendulum_batched_result(dev, True)
+    v = verdicts(res)
+    out = dict(results=res, verdicts=v, not_ported=NOT_PORTED,
+               all_pass=all(v.values()) and len(v) == len(VERDICTS),
+               wall_s=time.perf_counter() - t0)
+    print(json.dumps(out), flush=True)
+    return 0 if out["all_pass"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

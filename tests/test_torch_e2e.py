@@ -114,9 +114,10 @@ def test_batched_episodes_match_jax_batch_runner():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports with JAX made unimportable."""
+    """Every module of the port, and the port's outcome gate
+    scripts/check_outcomes_torch.py, import with JAX made unimportable."""
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, pkgutil, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['optax'] = None\n"
         "sys.modules['bayesian_cbf_tpu'] = None\n"
@@ -124,6 +125,11 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'bayesian_cbf_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "spec = importlib.util.spec_from_file_location('gate', "
+        "'scripts/check_outcomes_torch.py')\n"
+        "gate = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(gate)\n"
+        "assert callable(gate.main) and callable(gate.verdicts)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
