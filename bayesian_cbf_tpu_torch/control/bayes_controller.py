@@ -1,5 +1,7 @@
 """Probabilistic CLF tracking with Bayes-CBF safety cones, solved as one
-small SOCP per episode per step, batched over episodes.
+small SOCP per episode per step, batched over episodes; and its
+deterministic baseline on a known model, the mean-CLF/CBF QP
+(`mean_clf_control`).
 
 With the posterior moments vec F(x) ~ N(vec FT^T, Bk kron A), a linear
 functional w of the dynamics has
@@ -217,3 +219,87 @@ def bayes_clf_control(cfg: BayesCLFControllerConfig, clf, cbfs, planner,
     if warm is None:
         return u_opt, info
     return u_opt, info, (sol.x, sol.s, sol.z)
+
+
+class MeanCLFControllerConfig(NamedTuple):
+    """The deterministic mean-CLF/CBF QP on a known control-affine model."""
+    u_dim: int = 2
+    clf_gamma: float = 10.0
+    clf_relax_weight: float = 10.0
+    cbf_gammas: Tuple[float, ...] = ()
+    ctrl_lo: Tuple[float, ...] = (-10.0, -math.pi * 5)
+    ctrl_hi: Tuple[float, ...] = (10.0, math.pi * 5)
+    socp_iters: int = 25
+
+
+@lru_cache(maxsize=16)
+def _mean_clf_constants(cfg: MeanCLFControllerConfig, dtype, device):
+    """(objective vector (nvar,), the epigraph cone's rows G (m+2, nvar)
+    and h (m+2,), the box rows G (2m, nvar) and h (2m,)) over the
+    variables [u (m), relax, t]."""
+    m = cfg.u_dim
+    nvar = m + 2
+    # ||[2u; t - 1]|| <= t + 1, as rows h - G x = [t + 1; 2u; t - 1]
+    G_obj = [[0.0] * nvar for _ in range(m + 2)]
+    G_obj[0][m + 1] = G_obj[m + 1][m + 1] = -1.0
+    for i in range(m):
+        G_obj[1 + i][i] = -2.0
+    h_obj = [1.0] + [0.0] * m + [-1.0]
+    # u_i - lo_i >= 0, hi_i - u_i >= 0
+    G_box, h_box = [], []
+    for i, (lo, hi) in enumerate(zip(cfg.ctrl_lo, cfg.ctrl_hi)):
+        G_box += [[-1.0 if j == i else 0.0 for j in range(nvar)],
+                  [1.0 if j == i else 0.0 for j in range(nvar)]]
+        h_box += [-lo, hi]
+    cobj = [0.0] * m + [cfg.clf_relax_weight, 1.0]
+    kw = dict(dtype=dtype, device=device)
+    return tuple(torch.tensor(a, **kw)
+                 for a in (cobj, G_obj, h_obj, G_box, h_box))
+
+
+def mean_clf_socp(cfg: MeanCLFControllerConfig, clf, cbfs, planner,
+                  f_func, g_func, x, t):
+    """The batch of step-t mean-CLF SOCPs of states x (B, n) of the model
+    (f_func, g_func): (cobj (nvar,), G (B, M, nvar), h (B, M), dims) over
+    [u (m), relax, t], with
+
+        CLC:  grad V (f + g u) + grad_goal V dot_plan + gamma V <= relax,
+        CBC:  grad h_k (f + g u) + gamma_k h_k >= 0,
+
+    the box, and the rotated-cone epigraph u^T u <= t  <=>
+    ||[2u; t - 1]|| <= t + 1: cones of dimensions (m + 2, 1, ...), one ray
+    for the CLC, each CBF and each bound."""
+    m = cfg.u_dim
+    batch = x.shape[0]
+    goal = planner.plan(t)
+    fx, gx = f_func(x), g_func(x)
+    V, gclf, ggoal = clf.value_and_grads(x, goal)
+    clc_a = (gclf[:, None] @ gx)[:, 0]
+    clc_b = ((gclf * fx).sum(-1) + (ggoal * planner.dot_plan(t)).sum(-1)
+             + cfg.clf_gamma * V)
+    cobj, G_obj, h_obj, G_box, h_box = _mean_clf_constants(cfg, x.dtype,
+                                                           x.device)
+    zero, one = x.new_zeros((batch, 1)), x.new_ones((batch, 1))
+    G_rows = [G_obj.expand(batch, -1, -1),
+              torch.cat([clc_a, -one, zero], -1)[:, None]]
+    h_rows = [h_obj.expand(batch, -1), -clc_b[:, None]]
+    for cbf, gamma in zip(cbfs, cfg.cbf_gammas):
+        h, gh = cbf.value_and_grad(x)
+        G_rows.append(torch.cat([-(gh[:, None] @ gx)[:, 0], zero, zero],
+                                -1)[:, None])
+        h_rows.append(((gh * fx).sum(-1) + gamma * h)[:, None])
+    G_rows.append(G_box.expand(batch, -1, -1))
+    h_rows.append(h_box.expand(batch, -1))
+    G, h = torch.cat(G_rows, 1), torch.cat(h_rows, 1)
+    return cobj, G, h, (m + 2,) + (1,) * (G.shape[1] - m - 2)
+
+
+def mean_clf_control(cfg: MeanCLFControllerConfig, clf, cbfs, planner,
+                     f_func, g_func, x, t):
+    """min ||u||^2 + w_relax relax  s.t.  CLC <= relax, CBC_k >= 0, box
+    (`mean_clf_socp`), solved cold at cfg.socp_iters iterations.  Returns
+    (u (B, m), the SOCPSolution)."""
+    cobj, G, h, dims = mean_clf_socp(cfg, clf, cbfs, planner, f_func,
+                                     g_func, x, t)
+    sol = solve_socp(cobj, G, h, dims, iters=cfg.socp_iters)
+    return sol.x[:, :cfg.u_dim], sol

@@ -32,6 +32,15 @@ def cartesian2polar(state, state_goal):
     return torch.stack([rho, alpha, beta], -1)
 
 
+def polar2cartesian(polar, state_goal):
+    """(rho, alpha, beta), goal -> (x, y, theta), (..., 3)."""
+    rho, alpha, beta = polar[..., 0], polar[..., 1], polar[..., 2]
+    phi = angdiff(state_goal[..., 2], beta)
+    theta = normalize_radians(phi + alpha)
+    return torch.stack([state_goal[..., 0] - rho * torch.cos(phi),
+                        state_goal[..., 1] - rho * torch.sin(phi), theta], -1)
+
+
 class CLFCartesian(NamedTuple):
     """V(x; x_g) = 1/2 Kp0 rho^2 + Kp1 (1 - cos alpha) + Kp2 (1 - cos beta)."""
     Kp: tuple = (0.9, 1.5, 0.0)
@@ -60,6 +69,36 @@ class CLFCartesian(NamedTuple):
     def grad_clf_wrt_goal(self, state, state_goal):
         """dV / d goal, (..., 3)."""
         return self.value_and_grads(state, state_goal)[2]
+
+
+class CLFPolar(NamedTuple):
+    """V(polar) = 1/2 Kp0 rho^2 + Kp1 (1 - cos alpha) + Kp2 (1 - cos beta)
+    + Kp3 (1 - cos(beta - alpha)) on polar states (rho, alpha, beta); the
+    goal enters only through the polar coordinates."""
+    Kp: tuple = (0.6, 1.5, 4.0, 0.0)
+
+    def value_and_grads(self, polar, state_goal):
+        """(V, dV/d polar, dV/d goal = 0), each over the leading axes."""
+        rho, alpha, beta = polar[..., 0], polar[..., 1], polar[..., 2]
+        K0, K1, K2, K3 = self.Kp
+        V = (0.5 * K0 * rho ** 2 + K1 * (1.0 - torch.cos(alpha))
+             + K2 * (1.0 - torch.cos(beta))
+             + K3 * (1.0 - torch.cos(beta - alpha)))
+        sba = K3 * torch.sin(beta - alpha)
+        gx = torch.stack([K0 * rho, K1 * torch.sin(alpha) - sba,
+                          K2 * torch.sin(beta) + sba], -1)
+        return V, gx, torch.zeros_like(polar)
+
+    def clf(self, polar, state_goal):
+        return self.value_and_grads(polar, state_goal)[0]
+
+    def grad_clf(self, polar, state_goal):
+        """dV / d polar, (..., 3)."""
+        return self.value_and_grads(polar, state_goal)[1]
+
+    def grad_clf_wrt_goal(self, polar, state_goal):
+        """Zero, (..., 3)."""
+        return self.value_and_grads(polar, state_goal)[2]
 
 
 class ObstacleCBF(NamedTuple):

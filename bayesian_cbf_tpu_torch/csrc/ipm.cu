@@ -10,24 +10,26 @@
 // per-problem `done = score < tol` and non-finite-step rejection, and the
 // final best-or-current choice.
 //
-// Mapping: one lane per cone, a group of 4 neighbouring lanes per problem
-// (at C = 3 the fourth lane mirrors cone 0 and is never read), 8 problems
-// per 32-thread block, so that a batch of 256 spreads over 32 SMs and each
-// warp has a scheduler to itself.  NX (variables), C (cones) and D (padded
-// cone dimension) are template parameters, so every loop unrolls.  A lane
-// loads its cone's block of G (D x NX floats, contiguous in the callers'
-// (B, C, D, NX) layout) and of h once and keeps them, its slices of S and
-// Z, their best copies and the scaling state in registers: the per-cone
-// algebra (NT scaling, W products, step lengths, the corrector) runs in
-// parallel over the lanes.  What couples the cones (the dual residual,
-// the normal matrix, the KKT right-hand sides, the norms, the step
-// minimum, the finite flag) goes over the group by shuffles.  Every sum
-// over the cones is one chain in cone order (`gchain`), continued from
-// lane to lane: the order of the plain version's contractions, and all
-// lanes of a problem hold bit-identical values and take the same
-// branches; the 4 x 4 Cholesky and its solves are computed redundantly by
-// each lane.  Inputs and outputs are in the callers' layout: no transposed
-// copies around the launch.
+// Mapping: one lane per cone, a group of GW neighbouring lanes per problem,
+// GW the smaller of 4 and 8 that holds the C cones (lanes past C mirror
+// cone 0 and are never read: the fourth at C = 3, three at C = 5), so a
+// 32-thread block holds 8 problems of 4 lanes or 4 of 8, a batch of 256
+// spreads over 32 or 64 SMs and each warp has a scheduler to itself.  NX
+// (variables), C (cones), D (padded cone dimension) and GW are template
+// parameters, so every loop unrolls.  A lane loads its cone's block of G
+// (D x NX floats, contiguous in the callers' (B, C, D, NX) layout) and of
+// h once and keeps them, its slices of S and Z, their best copies and the
+// scaling state in registers: the per-cone algebra (NT scaling, W
+// products, step lengths, the corrector) runs in parallel over the lanes.
+// What couples the cones (the dual residual, the normal matrix, the KKT
+// right-hand sides, the norms, the step minimum, the finite flag) goes
+// over the group by shuffles.  Every sum over the cones is one chain in
+// cone order (`gchain`), continued from lane to lane: the order of the
+// plain version's contractions, and all lanes of a problem hold
+// bit-identical values and take the same branches; the NX x NX Cholesky
+// and its solves are computed redundantly by each lane.  Inputs and
+// outputs are in the callers' layout: no transposed copies around the
+// launch.
 //
 // What bounds it on the H100: latency of the dependent chain of scalar
 // f32 operations of one iteration (residuals -> scaling -> normal matrix
@@ -45,8 +47,7 @@ namespace {
 
 constexpr float kEps = 1e-14f;
 constexpr float kBig = 1e10f;
-constexpr int kThreads = 32;   // 8 problems of 4 lanes
-constexpr int kGroup = 4;
+constexpr int kThreads = 32;   // 8 problems of 4 lanes, or 4 of 8
 constexpr unsigned kFull = 0xffffffffu;
 
 template <int D>
@@ -231,7 +232,7 @@ __device__ __forceinline__ float residuals(const Cone<NX, D>& k, const float* c,
     return fmaxf(fmaxf(sqrtf(rzn) / hnorm, sqrtf(rxn) / cnorm), mu);
 }
 
-template <int NX, int C, int D>
+template <int NX, int C, int D, int GW>
 __global__ void __launch_bounds__(kThreads)
 ipm_kernel(const float* __restrict__ cG,   // (B, NX)
            const float* __restrict__ G,    // (B, C, D, NX)
@@ -241,11 +242,12 @@ ipm_kernel(const float* __restrict__ cG,   // (B, NX)
            const float* __restrict__ sZ,   // (B, C, D)
            float* __restrict__ xo, float* __restrict__ So,
            float* __restrict__ Zo, int B, int iters, float tol) {
-    static_assert(C <= kGroup, "one lane per cone in a group of 4");
+    static_assert((GW == 4 || GW == 8) && C <= GW,
+                  "one lane per cone in a group of 4 or 8");
     const int lane = threadIdx.x & 31;
-    const int gl = lane & (kGroup - 1);
+    const int gl = lane & (GW - 1);
     const int gbase = lane - gl;
-    const int slot = (blockIdx.x * kThreads + threadIdx.x) / kGroup;
+    const int slot = (blockIdx.x * kThreads + threadIdx.x) / GW;
     // lanes past the batch repeat its last problem and lanes past the
     // cones repeat cone 0: they run the same shuffles and store nothing
     const bool store = slot < B && gl < C;
@@ -487,15 +489,57 @@ ipm_kernel(const float* __restrict__ cG,   // (B, NX)
     }
 }
 
+// the group width of C cones: the smaller of 4 and 8 that holds them
+template <int C>
+constexpr int group_width() { return C <= 4 ? 4 : 8; }
+
 template <int NX, int C, int D>
 int launch(const float* c, const float* G, const float* h, const float* sx,
            const float* sS, const float* sZ, float* x, float* S, float* Z, int B,
            int iters, float tol, cudaStream_t stream) {
-    const int per_block = kThreads / kGroup;
+    constexpr int GW = group_width<C>();
+    const int per_block = kThreads / GW;
     const int blocks = (B + per_block - 1) / per_block;
-    ipm_kernel<NX, C, D><<<blocks, kThreads, 0, stream>>>(c, G, h, sx, sS, sZ, x, S, Z,
-                                                         B, iters, tol);
+    ipm_kernel<NX, C, D, GW><<<blocks, kThreads, 0, stream>>>(
+        c, G, h, sx, sS, sZ, x, S, Z, B, iters, tol);
     return (int)cudaGetLastError();
+}
+
+template <int NX_, int C_, int D_>
+struct Shape {
+    static constexpr int NX = NX_, C = C_, D = D_;
+};
+
+// The instantiated shapes (nx, C, d), group width 4 unless named:
+//  (4, 4, 4)  the unicycle controller's [u (2), relax, t] with four cones
+//             of dimension 4 (objective, CLC, two CBCs);
+//  (4, 3, 3)  the pendulum controller's [u, delta, y, s] with cones of
+//             dimensions (3, 3, 1) padded to 3;
+//  (3, 5, 3)  group width 8: the pendulum's ground-truth CLF-CBF QP, [u,
+//             slack, y] with cones of dimensions (3, 1, 1, 1, 1);
+//  (4, 6, 4)  group width 8: the deterministic mean-CLF QP, [u (2), relax,
+//             t] with cones of dimensions (4, 1, 1, 1, 1, 1);
+//  (4, 2, 4)  the unicycle controller without obstacles (objective, CLC).
+template <class... S>
+struct ShapeList {};
+using Shapes = ShapeList<Shape<4, 4, 4>, Shape<4, 3, 3>, Shape<3, 5, 3>,
+                         Shape<4, 6, 4>, Shape<4, 2, 4>>;
+
+// f(S{}) for the shape S of Shapes that is (nx, C, d); false if none is.
+template <class F, class... S>
+bool with_shape(int nx, int C, int d, F f, ShapeList<S...>) {
+    return ((nx == S::NX && C == S::C && d == S::D ? (f(S{}), true) : false) || ...);
+}
+
+// Writes the (nx, C, d) of the first `cap` shapes to out[3 i .. 3 i + 2], in
+// their order; returns how many there are.
+template <class... S>
+int list_shapes(int* out, int cap, ShapeList<S...>) {
+    const int all[][3] = {{S::NX, S::C, S::D}...};
+    const int n = (int)sizeof...(S);
+    for (int i = 0; i < n && i < cap; ++i)
+        for (int j = 0; j < 3; ++j) out[3 * i + j] = all[i][j];
+    return n;
 }
 
 }  // namespace
@@ -505,25 +549,32 @@ extern "C" {
 
 // The callers' layout, contiguous: c, sx, x (B, nx); G (B, C, d, nx); h, sS,
 // sZ, S, Z (B, C, d).
-// Instantiated shapes (nx, C, d): (4, 4, 4), the unicycle controller's
-// [u (2), relax, t] with four cones of dimension 4; (4, 3, 3), the
-// pendulum controller's [u, delta, y, s] with cones of dimensions (3, 3, 1)
-// padded to 3.  Returns cudaErrorInvalidValue for any other shape.
+// One of the shapes of `Shapes` (the wrapper asks `ipm_group_width` and
+// raises before any other reaches here); cudaErrorInvalidValue for any other.
 int ipm_launch(const float* c, const float* G, const float* h, const float* sx,
                const float* sS, const float* sZ, float* x, float* S, float* Z,
                int B, int nx, int C, int d, int iters, float tol, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (nx == 4 && C == 4 && d == 4)
-        return launch<4, 4, 4>(c, G, h, sx, sS, sZ, x, S, Z, B, iters, tol, s);
-    if (nx == 4 && C == 3 && d == 3)
-        return launch<4, 3, 3>(c, G, h, sx, sS, sZ, x, S, Z, B, iters, tol, s);
-    return (int)cudaErrorInvalidValue;
+    int rc = (int)cudaErrorInvalidValue;
+    with_shape(nx, C, d, [&](auto shape) {
+        using Sh = decltype(shape);
+        rc = launch<Sh::NX, Sh::C, Sh::D>(c, G, h, sx, sS, sZ, x, S, Z, B, iters,
+                                          tol, (cudaStream_t)stream);
+    }, Shapes{});
+    return rc;
 }
 
-// 1 when (nx, C, d) has a compiled instantiation.
-int ipm_supported(int nx, int C, int d) {
-    return ((nx == 4 && C == 4 && d == 4) || (nx == 4 && C == 3 && d == 3))
-               ? 1 : 0;
+// The lanes per problem of the instantiation at (nx, C, d), 4 or 8; 0 when
+// (nx, C, d) has none.
+int ipm_group_width(int nx, int C, int d) {
+    int gw = 0;
+    with_shape(nx, C, d, [&](auto shape) {
+        gw = group_width<decltype(shape)::C>();
+    }, Shapes{});
+    return gw;
 }
+
+// The instantiated (nx, C, d), in the order of `Shapes`: the first `cap` to
+// out (3 ints each); returns how many there are.
+int ipm_shapes(int* out, int cap) { return list_shapes(out, cap, Shapes{}); }
 
 }  // extern "C"

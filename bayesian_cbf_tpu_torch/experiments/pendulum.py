@@ -2,26 +2,31 @@
 one episode: start near theta = 7 pi / 12, an epsilon-greedy LQR
 reference on the learned model, a learned relative-degree-2 CBC SOCP
 keeping theta out of the wedge around pi / 4, and the dynamics (drift
-and actuation) learned from scratch by a full-rank MVGP.  Also the data
-samplers of the dynamics-learning experiments and their error measure.
+and actuation) learned from scratch by a full-rank MVGP.  Also the
+ground-truth CLF-CBF QP controller and its episode (start 5 pi / 12, the
+true model), the data samplers of the dynamics-learning experiments and
+their error measure.
 """
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..control.learned_socp_controller import (LearnedSOCPControllerConfig,
                                                learned_socp_control)
-from ..control.pendulum_safety import RadialCBFRelDegree2
+from ..control.pendulum_safety import EnergyCLF, RadialCBFRelDegree2
 from ..control.secondary import EpsilonGreedyController, LQRController
 from ..models.dynamics import (LearnedDynState, LearnedShiftInvariantDynamics,
                                PendulumDynamics, ZeroDynamics, where_tree)
 from ..models.mvgp import make_mvgp
 from ..sim.rollout import _stack_steps, first_episode, fit_segments
+from ..solvers.socp import solve_socp
 
 THETA0 = 7 * math.pi / 12
+THETA0_GROUND_TRUTH = 5 * math.pi / 12
 
 
 class PendulumOnlineSim(NamedTuple):
@@ -163,6 +168,89 @@ def run_pendulum_online_learning(sim: PendulumOnlineSim, theta0=THETA0,
         sim, [[theta0, omega0]], generator, state0,
         None if draws is None else draws[:, None],
         None if noise is None else noise[:, None]))
+
+
+@lru_cache(maxsize=16)
+def _ground_truth_constants(margin_weight, ctrl_range, dtype, device):
+    """(objective vector (3,), the epigraph cone's rows G (3, 3) and h (3,),
+    the box rows G (2, 3) and h (2,)) over the variables [u, slack, y]."""
+    sw = math.sqrt(margin_weight)
+    lo, hi = ctrl_range
+    kw = dict(dtype=dtype, device=device)
+    # ||[u; sw slack]|| <= y, as rows h - G x = [y; u; sw slack]
+    return (torch.tensor([0.0, 0.0, 1.0], **kw),
+            torch.tensor([[0.0, 0.0, -1.0], [-1.0, 0.0, 0.0],
+                          [0.0, -sw, 0.0]], **kw),
+            torch.zeros(3, **kw),
+            torch.tensor([[-1.0, 0.0, 0.0], [1.0, 0.0, 0.0]], **kw),
+            torch.tensor([-lo, hi], **kw))
+
+
+def ground_truth_socp(x, clf, cbf2, ctrl_range=(-15.0, 15.0),
+                      margin_weight=100.0):
+    """The CLF-CBF QP on the true pendulum for states x (B, 2): the
+    constraints A(x) u <= b(x) of `clf` (an EnergyCLF, relaxed by a slack)
+    and `cbf2` (a RadialCBFRelDegree2, hard) and the box, minimizing
+    ||u||^2 + w slack^2, in its norm-epigraph form over [u, slack, y]:
+    ||[u; sqrt(w) slack]|| <= y, minimize y (the same minimizer; the
+    epigraph of the squared cost puts a variable of ~5e3 beside data of
+    ~1-20, on which the f32 IPM stalls from the cold start).  Returns
+    (cobj (3,), G (B, 7, 3), h (B, 7), dims (3, 1, 1, 1, 1))."""
+    batch = x.shape[0]
+    cobj, G_obj, h_obj, G_box, h_box = _ground_truth_constants(
+        margin_weight, tuple(ctrl_range), x.dtype, x.device)
+    zero, one = x.new_zeros((batch, 1)), x.new_ones((batch, 1))
+    G = torch.cat([G_obj.expand(batch, -1, -1),
+                   torch.cat([clf.A(x), -one, zero], -1)[:, None],
+                   torch.cat([cbf2.A(x), zero, zero], -1)[:, None],
+                   G_box.expand(batch, -1, -1)], 1)
+    h = torch.cat([h_obj.expand(batch, -1), clf.b(x)[:, None],
+                   cbf2.b(x)[:, None], h_box.expand(batch, -1)], 1)
+    return cobj, G, h, (3, 1, 1, 1, 1)
+
+
+def ground_truth_cbf_clf_control(x, clf, cbf2, ctrl_range=(-15.0, 15.0),
+                                 margin_weight=100.0, socp_iters=25):
+    """`ground_truth_socp` solved cold at `socp_iters` iterations.  A solve
+    whose relative primal residual is not below 5e-3 (f32; 1e-6 in f64) or
+    whose solution is not finite gives u = 0, else u is the solution's,
+    clipped to ctrl_range.  Returns (u (B, 1), the SOCPSolution)."""
+    sol = solve_socp(*ground_truth_socp(x, clf, cbf2, ctrl_range,
+                                        margin_weight), iters=socp_iters)
+    feas_tol = 1e-6 if x.dtype == torch.float64 else 5e-3
+    ok = (sol.pres < feas_tol) & torch.isfinite(sol.x).all(-1)
+    u = torch.where(ok[:, None], torch.clamp(sol.x[:, :1], *ctrl_range),
+                    torch.zeros_like(sol.x[:, :1]))
+    return u, sol
+
+
+def run_pendulum_ground_truth_batch(x0s, numSteps=400, dt=0.01,
+                                    device="cuda", dtype=torch.float32):
+    """B episodes of the true pendulum under `ground_truth_cbf_clf_control`
+    (EnergyCLF and RadialCBFRelDegree2 at their defaults) from x0s (B, 2),
+    moved to `device` in `dtype`: (X (B, T, 2) states before each step,
+    U (B, T, 1), pres (B, T) the solves' relative primal residuals).  One
+    IPM launch a step."""
+    pend = PendulumDynamics()
+    clf, cbf2 = EnergyCLF(model=pend), RadialCBFRelDegree2(model=pend)
+    X = torch.as_tensor(x0s, dtype=dtype, device=device)
+    ys = []
+    for _ in range(numSteps):
+        u, sol = ground_truth_cbf_clf_control(X, clf, cbf2)
+        X_next, _ = pend.step(X, u, dt)
+        ys.append((X, u, sol.pres))
+        X = X_next
+    return _stack_steps(ys)
+
+
+def run_pendulum_ground_truth(numSteps=400, dt=0.01,
+                              theta0=THETA0_GROUND_TRUTH, omega0=0.0,
+                              device="cuda", dtype=torch.float32):
+    """One episode from (theta0, omega0), run as
+    `run_pendulum_ground_truth_batch` at B = 1: (X (T, 2), U (T, 1),
+    pres (T,))."""
+    return first_episode(run_pendulum_ground_truth_batch(
+        [[theta0, omega0]], numSteps, dt, device, dtype))
 
 
 def pendulum_damage_fraction(theta):

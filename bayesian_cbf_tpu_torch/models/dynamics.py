@@ -1,7 +1,7 @@
-"""Control-affine dynamics: the Ackermann and pendulum ground truths,
-the zero prior mean, and the online-learned residual MVGP with shift
-invariance, batched over episodes.  The state of the learner is a
-NamedTuple of tensors with a leading episode axis.
+"""Control-affine dynamics: the unicycle (cartesian and polar), Ackermann
+and pendulum ground truths, the zero prior mean, and the online-learned
+residual MVGP with shift invariance, batched over episodes.  The state of
+the learner is a NamedTuple of tensors with a leading episode axis.
 """
 from __future__ import annotations
 
@@ -63,6 +63,54 @@ def _write_row(data: MVGPData, hit, x, uh, xdot) -> MVGPData:
                     Xdot=torch.where(h, xdot[:, None], data.Xdot),
                     mask=torch.where(hit, torch.ones_like(data.mask),
                                      data.mask))
+
+
+class CartesianDynamics(NamedTuple):
+    """Unicycle: xdot = [v cos th, v sin th, omega], u = [v, omega];
+    f = 0."""
+    state_size: int = 3
+    ctrl_size: int = 2
+
+    def f_func(self, x):
+        return torch.zeros_like(x)
+
+    def g_func(self, x):
+        th = x[:, 2]
+        z, o = torch.zeros_like(th), torch.ones_like(th)
+        return torch.stack([torch.stack([torch.cos(th), z], -1),
+                            torch.stack([torch.sin(th), z], -1),
+                            torch.stack([z, o], -1)], -2)
+
+    def F_func(self, x):
+        return torch.cat([self.f_func(x)[..., None], self.g_func(x)], -1)
+
+    def step(self, x, u, dt):
+        xdot = self.f_func(x) + (self.g_func(x) @ u[..., None])[..., 0]
+        return x + xdot * dt, xdot
+
+
+class PolarDynamics(NamedTuple):
+    """The unicycle in polar coordinates about its goal, x = (rho, alpha,
+    beta): rho_dot = -v cos alpha, alpha_dot = -v sin alpha / rho + omega,
+    beta_dot = -v sin alpha / rho; f = 0.  The 1 / rho grows without bound
+    at the goal: a caller that drives rho to 0 gets an infinite g there."""
+    state_size: int = 3
+    ctrl_size: int = 2
+
+    def f_func(self, x):
+        return torch.zeros_like(x)
+
+    def g_func(self, x):
+        rho, alpha = x[:, 0], x[:, 1]
+        z, o = torch.zeros_like(rho), torch.ones_like(rho)
+        sr = -torch.sin(alpha) / rho
+        return torch.stack([torch.stack([-torch.cos(alpha), z], -1),
+                            torch.stack([sr, o], -1),
+                            torch.stack([sr, z], -1)], -2)
+
+    def step(self, x, u, dt):
+        xdot = self.f_func(x) + (self.g_func(x) @ u[..., None])[..., 0]
+        return x + xdot * dt, xdot
 
 
 class AckermannDrive(NamedTuple):

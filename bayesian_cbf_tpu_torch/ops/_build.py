@@ -139,7 +139,8 @@ _SIGNATURES = {
         "kinv_logdet_launch": [_VP] * 5 + [_INT] * 4 + [_VP],
     },
     "ipm": {
-        "ipm_supported": [_INT, _INT, _INT],
+        "ipm_group_width": [_INT, _INT, _INT],
+        "ipm_shapes": [_VP, _INT],
         "ipm_launch": [_VP] * 9 + [_INT] * 5 + [_F32, _VP],
     },
     "sweep": {

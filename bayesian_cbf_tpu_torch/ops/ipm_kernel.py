@@ -13,12 +13,29 @@ come back contiguous in the same layout.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 
 _EPS = 1e-14
 _BIG = 1e10
+
+def group_width(nx: int, C: int, d: int) -> int:
+    """Lanes per problem of the kernel instantiated at (nx, C, d): the
+    smaller of 4 and 8 that holds the C cones, one lane each (a 32-thread
+    block holds 32 // width problems); 0 where csrc/ipm.cu instantiates
+    none.  Builds the kernel's library at first use."""
+    return _build.load("ipm").ipm_group_width(nx, C, d)
+
+
+def instantiated_shapes() -> tuple:
+    """The (nx, C, d) that csrc/ipm.cu instantiates, in its order."""
+    cap = 16
+    buf = (ctypes.c_int * (3 * cap))()
+    n = _build.load("ipm").ipm_shapes(ctypes.addressof(buf), cap)
+    return tuple(tuple(buf[3 * i:3 * i + 3]) for i in range(min(n, cap)))
 
 
 # ---- batched cone algebra on (..., C, d) blocks --------------------------
@@ -274,9 +291,10 @@ def ipm(c, Gp, hp, sx, sS, sZ, iters: int, tol: float):
     if c.device.type != "cuda":
         raise ValueError(f"ipm: no kernel for device {c.device}")
     lib = _build.load("ipm")
-    if not lib.ipm_supported(nx, C, d):
-        raise ValueError(f"ipm: no kernel instantiation for "
-                         f"(nx, C, d)=({nx}, {C}, {d})")
+    if not lib.ipm_group_width(nx, C, d):
+        raise ValueError(f"ipm: no kernel instantiation for (nx, C, d)="
+                         f"({nx}, {C}, {d}); instantiated: "
+                         f"{instantiated_shapes()}")
     x, S, Z = torch.empty_like(sx), torch.empty_like(sS), torch.empty_like(sZ)
     rc = lib.ipm_launch(c.data_ptr(), Gp.data_ptr(), hp.data_ptr(),
                         sx.data_ptr(), sS.data_ptr(), sZ.data_ptr(),

@@ -14,9 +14,14 @@ Phases (each raises on failure; nothing is caught):
                  of the kernel, the plain version and (where one PyTorch
                  call computes the same function) that call, and the
                  kernel's bound from its bytes and operations.  The IPM
-                 runs at both instantiations: (4, 4, 4) on the unicycle's
-                 cones and (4, 3, 3) on the pendulum's, each also on 1003
-                 random cones (no whole number of blocks).  The blocked
+                 runs at every instantiation, each on random cones of its
+                 structure, on a path's real cones and on 1003 random
+                 cones (no whole number of blocks): (4, 4, 4) on the
+                 unicycle's cones, (4, 3, 3) on the pendulum's, (3, 5, 3)
+                 on the ground-truth QP's at 256 states about its start,
+                 (4, 6, 4) on the mean-CLF QP's at 256 move-to-pose
+                 states, (4, 2, 4) on the obstacle-free batch's step-0
+                 cones.  The blocked
                  factor's kernels (the fit inverse among them), the IPM,
                  both kernels of csrc/sweep.cu and the three instances of
                  the fused Gram print their registers, stack and spill
@@ -33,8 +38,9 @@ Phases (each raises on failure; nothing is caught):
                  At B = 1 (the single episodes of phase 7): kernels 1 and
                  2 on a trajectory Gram and an SPD matrix (1, 200), and
                  the IPM on 256 problems launched one at a time (the mean
-                 CBF's step-0 half-spaces, dims (4, 1, 1, 1), and the
-                 pendulum's step-0 cones), each held to the bits of the
+                 CBF's step-0 half-spaces, dims (4, 1, 1, 1), the
+                 pendulum's step-0 cones and the real cones of the three
+                 shapes above), each held to the bits of the
                  same problem in a batched launch and to the bars of the
                  batched checks, with times and bounds at B = 1.
   4. main     -- the batched unicycle learn-and-control loop (B=256
@@ -63,11 +69,19 @@ Phases (each raises on failure; nothing is caught):
                  feasible_steps_respect_cbc, learning_passes,
                  no_learning_stuck and pendulum_online_no_damage, all
                  required true.
+  8. deterministic -- the pendulum's ground-truth QP episode (B = 1, 400
+                 steps) with the pendulum_gt_safe verdict, the four
+                 move-to-pose demos (B = 1) at the JAX tests' sizes with
+                 those tests' assertions, and the flagship batch without
+                 its obstacles (B = 256, K = 200, 2000 steps, (4, 2, 4)
+                 cones): walls, launch counts held to the schedule's,
+                 outcomes; finite and feasible fraction above 0.9.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
 import importlib.util
 import json
+import math
 import os
 import time
 
@@ -525,37 +539,45 @@ def _step0_cones(dev, x0s, seed, sim=None, want_dims=None):
     return cobj.expand(x0s.shape[0], -1).contiguous(), Gp, hp
 
 
-def _ipm_flops(B, nx, C, d, iters):
-    """f32 operations that `iters` IPM iterations on B problems need (a
-    multiply-add counts two): the residuals, the normal matrix
-    G^T W^-2 G and its factor, two KKT solves, the cone algebra (scaling,
-    step lengths, corrector), each once per problem.  What the kernel
-    repeats on every lane of a problem (the factor and its solves, the
-    chained sums) is its own cost and does not enter."""
-    per_iter = (10 * C * d * nx + 2.5 * C * d * nx * (nx + 1)
-                + (2 / 3) * nx ** 3 + 4 * nx * nx + 120 * C * d + 100 * C)
-    return B * (iters * per_iter + 4 * C * d * nx)
+def _ipm_flops(B, nx, dims, iters):
+    """f32 operations that `iters` IPM iterations on B problems with cones
+    of dimensions `dims` need (a multiply-add counts two): the residuals,
+    the normal matrix G^T W^-2 G and its factor, two KKT solves, the cone
+    algebra (scaling, step lengths, corrector), each once per problem, on
+    the sum(dims) rows the problem has: the rows that pad a cone to d stay
+    zero and are no work of the function.  What the kernel repeats on
+    every lane of a problem (the factor and its solves, the chained sums)
+    is its own cost and does not enter."""
+    rows, C = sum(dims), len(dims)
+    per_iter = (10 * rows * nx + 2.5 * rows * nx * (nx + 1)
+                + (2 / 3) * nx ** 3 + 4 * nx * nx + 120 * rows + 100 * C)
+    return B * (iters * per_iter + 4 * rows * nx)
 
 
-def _check_ipm_kernel(dev, label, rand, real, many):
+def _check_ipm_kernel(dev, label, rand, real, many, dims):
     """The IPM kernel at the instantiation of the problems' shape, on
     random cones of that structure (`rand`) and on a path's real cones
-    (`real`), cold (25 iterations, each path's start) and warm-started
-    (15), against the plain version and an f64 solve; then on `many`, a
-    larger batch of random cones that fills no whole number of blocks."""
+    (`real`, of dimensions `dims`, padded), cold (25 iterations, each
+    path's start) and warm-started (15), against the plain version and an
+    f64 solve; then on `many`, a larger batch of random cones that fills
+    no whole number of blocks."""
     from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
     B, C, d, nx = real[1].shape
+    _require((C, d) == (len(dims), max(dims)),
+             f"[ipm {label}]: cone dimensions {dims} for ({C}, {d})")
     _ipm_against_plain(dev, label, "random", rand, ik.ipm)
     worst_err = _ipm_against_plain(dev, label, "real", real, ik.ipm)
     cold = _ipm_cold(dev, real)
     _check_ipm_ragged_batch(dev, label, many)
     ms = _cuda_ms(lambda: ik.ipm(*real, *cold, 25, 1e-10), 50)
     plain_ms = _cuda_ms(lambda: ik.ipm_plain(*real, *cold, 25, 1e-10), 5)
-    bound = _ipm_bound(B, nx, C, d)
-    usage = _usage("ipm", f"ipm_kernel<{nx}, {C}, {d}>")
+    bound = _ipm_bound(B, nx, dims)
+    usage = _usage("ipm",
+                   f"ipm_kernel<{nx}, {C}, {d}, {ik.group_width(nx, C, d)}>")
     print(f"[ipm {label}] (nx, C, d) = ({nx}, {C}, {d}), B={B}, 25 "
           f"iterations: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}; the kernel is "
+          f"{bound['bound_ms']:.5f} ms on cone dimensions {dims} "
+          f"({bound['bound_by']}; the kernel is "
           f"bound by the latency of its serial per-lane chain); "
           f"{_usage_text(usage)}", flush=True)
     _require(usage["spill_bytes"] == 0 and usage["stack_bytes"] == 0,
@@ -572,8 +594,11 @@ def _ipm_cold(dev, prob):
     return [torch.zeros((B, nx), dtype=torch.float32, device=dev), e, e]
 
 
-def _ipm_bound(B, nx, C, d):
-    return _bound(_ipm_flops(B, nx, C, d, 25),
+def _ipm_bound(B, nx, dims):
+    """25 iterations' operations on the cones' own rows; the bytes of the
+    padded (C, d) blocks, which the kernel reads and writes."""
+    C, d = len(dims), max(dims)
+    return _bound(_ipm_flops(B, nx, dims, 25),
                   F32 * B * (3 * nx + C * d * nx + 5 * C * d))
 
 
@@ -688,7 +713,7 @@ def _ipm_against_plain(dev, label, kind, prob, solve):
     return worst_err
 
 
-def _check_ipm_b1(dev, label, real):
+def _check_ipm_b1(dev, label, real, dims):
     """The IPM at B = 1, as the single episodes launch it: every problem
     of a path's real cones launched alone (one block, seven of its eight
     problem slots empty), held to the bits of the same problem in one
@@ -713,31 +738,31 @@ def _check_ipm_b1(dev, label, real):
 
     worst_err = _ipm_against_plain(dev, f"{label} B=1", "real", real,
                                    one_at_a_time)
-    _, C, d, nx = real[1].shape
     one = [a[:1].contiguous() for a in real + _ipm_cold(dev, real)]
     run = lambda: ik.ipm(*one, 25, 1e-10)
     ms, device_ms = _cuda_ms(run, 50), _device_ms(run, "ipm_kernel", 50)
     plain_ms = _cuda_ms(lambda: ik.ipm_plain(*one, 25, 1e-10), 5)
-    bound = _ipm_bound(1, nx, C, d)
+    bound = _ipm_bound(1, real[1].shape[3], dims)
     print(f"{tag} {n} problems launched one at a time: the bits of the "
           f"batched launch; one problem, 25 iterations: kernel {ms:.4f} ms "
           f"per call, {device_ms:.4f} ms of device time per launch, plain "
-          f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.6f} ms "
-          f"({bound['bound_by']})", flush=True)
+          f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.6f} ms on cone "
+          f"dimensions {dims} ({bound['bound_by']})", flush=True)
     return dict(max_abs_err=worst_err, ms=ms, device_ms=device_ms,
                 plain_ms=plain_ms, library_ms=None, **bound)
 
 
 def _check_ipm_ragged_batch(dev, label, prob):
     """A batch that is no multiple of the kernel's block (8 problems of 4
-    lanes), on random cones, cold, 25 iterations, against the plain
-    version: contiguous finite outputs in the callers' layout, the score's
-    median within twice plain's, as many converged problems within 5%, and
-    the optimal values equal where both converge; then the kernel's time
-    on the batch and on one problem of it."""
+    lanes, or 4 of 8), on random cones, cold, 25 iterations, against the
+    plain version: contiguous finite outputs in the callers' layout, the
+    score's median within twice plain's, as many converged problems within
+    5%, and the optimal values equal where both converge; then the
+    kernel's time on the batch and on one problem of it."""
     from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
     B, C, d, nx = prob[1].shape
-    _require(B % 8 != 0, "the ragged batch fills whole blocks")
+    _require(B % (32 // ik.group_width(nx, C, d)) != 0,
+             "the ragged batch fills whole blocks")
     e = torch.zeros((B, C, d), dtype=torch.float32, device=dev)
     e[..., 0] = 1.0
     cold = [torch.zeros((B, nx), dtype=torch.float32, device=dev), e, e]
@@ -772,9 +797,10 @@ def _check_ipm_ragged_batch(dev, label, prob):
           f"alone {ms_one:.3f} ms", flush=True)
 
 
-def _pendulum_step0_cones(dev, x0s):
+def _pendulum_step0_cones(dev, x0s, want_dims):
     """The pendulum path's real step-0 SOCPs (fresh weights, the
-    epsilon-greedy reference at its widest), padded."""
+    epsilon-greedy reference at its widest), whose cone dimensions must be
+    `want_dims`, padded."""
     from bayesian_cbf_tpu_torch.control.learned_socp_controller import (
         learned_socp_cones)
     from bayesian_cbf_tpu_torch.solvers.socp import _pad_cones
@@ -789,8 +815,61 @@ def _pendulum_step0_cones(dev, x0s):
         u_lqr.shape, generator=gen, device=dev))
     cobj, G, h, dims, _, _ = learned_socp_cones(sim.controller, (sim.cbf,),
                                                 mder, u_ref, x0s)
+    _require(dims == want_dims,
+             f"pendulum step-0 cone dimensions {dims}, not {want_dims}")
     Gp, hp = _pad_cones(G, h, dims)
     return cobj.expand(x0s.shape[0], -1).contiguous(), Gp, hp
+
+
+def _ground_truth_cones(dev, B=256):
+    """The pendulum's ground-truth QP at B states about its episode's
+    start (5 pi / 12, 0), + 0.05 N(0, 1) from a numpy seed: dims
+    (3, 1, 1, 1, 1), padded to (3, 5, 3)."""
+    from bayesian_cbf_tpu_torch.control.pendulum_safety import (
+        EnergyCLF, RadialCBFRelDegree2)
+    from bayesian_cbf_tpu_torch.experiments import pendulum as tp
+    from bayesian_cbf_tpu_torch.solvers.socp import _pad_cones
+    x = np.array([tp.THETA0_GROUND_TRUTH, 0.0])[None] + \
+        0.05 * np.random.default_rng(11).normal(size=(B, 2))
+    x = torch.tensor(x, dtype=torch.float32, device=dev)
+    cobj, G, h, dims = tp.ground_truth_socp(x, EnergyCLF(),
+                                            RadialCBFRelDegree2())
+    Gp, hp = _pad_cones(G, h, dims)
+    return [cobj.expand(B, -1).contiguous(), Gp, hp]
+
+
+# the move-to-pose demos' start and goal (JAX tests/test_experiments_misc.py)
+MOVE_X0 = (-2.0, -0.5, -math.pi / 4)
+MOVE_GOAL = (0.0, 0.0, math.pi / 4)
+
+
+def _mean_clf_cones(dev, B=256):
+    """The mean-CLF QP of the cartesian move-to-pose demo at B states about
+    its start, + 0.1 N(0, 1) from a numpy seed: dims (4, 1, 1, 1, 1, 1),
+    padded to (4, 6, 4)."""
+    from bayesian_cbf_tpu_torch.control.bayes_controller import (
+        MeanCLFControllerConfig, mean_clf_socp)
+    from bayesian_cbf_tpu_torch.control.clf_cbf import CLFCartesian
+    from bayesian_cbf_tpu_torch.control.planner import NoPlanner
+    from bayesian_cbf_tpu_torch.models.dynamics import CartesianDynamics
+    from bayesian_cbf_tpu_torch.solvers.socp import _pad_cones
+    x = np.array(MOVE_X0)[None] + \
+        0.1 * np.random.default_rng(12).normal(size=(B, 3))
+    x = torch.tensor(x, dtype=torch.float32, device=dev)
+    dyn = CartesianDynamics()
+    cobj, G, h, dims = mean_clf_socp(
+        MeanCLFControllerConfig(socp_iters=20), CLFCartesian(), (),
+        NoPlanner.create(torch.tensor(MOVE_GOAL, dtype=torch.float32,
+                                      device=dev)),
+        dyn.f_func, dyn.g_func, x, 0)
+    Gp, hp = _pad_cones(G, h, dims)
+    return [cobj.expand(B, -1).contiguous(), Gp, hp]
+
+
+def _no_obstacle_sim(dev):
+    """The flagship configuration without its obstacles: objective and CLC
+    cones only, (4, 2, 4)."""
+    return bt.unicycle_sim(dev)._replace(cbfs=())
 
 
 def _near_duplicate_case(B=4, k=40, seed=0):
@@ -1559,11 +1638,123 @@ def phase_outcomes(dev, card):
                  f"{_n_fits(lrn, T)} cache refreshes")
         launches[name] = counts
     verdicts = co.verdicts(results)
-    print(f"[outcomes] verdicts {verdicts}; not ported: {co.NOT_PORTED}",
-          flush=True)
+    print(f"[outcomes] verdicts {verdicts}", flush=True)
     _require(all(verdicts.get(k) is True for k in OUTCOME_VERDICTS),
              f"outcome verdicts failed: {verdicts}")
     _require(all(verdicts.values()), f"outcome verdicts failed: {verdicts}")
+    return launches
+
+
+# the move-to-pose demos at the JAX tests' sizes
+# (tests/test_experiments_misc.py:21-45), each with that test's assertion
+# on the distances to the goal at the first and the last state
+MOVE_DEMOS = {
+    "move_to_pose_clf_cartesian": (dict(numSteps=300, dt=0.02),
+                                   lambda d0, d1: d1 < 0.5 * d0),
+    "track_trajectory_clf_cartesian": (dict(numSteps=200, dt=0.02),
+                                       lambda d0, d1: d1 < 1.5),
+    "move_to_pose_clf_polar": (dict(numSteps=100, dt=0.01),
+                               lambda d0, d1: True),
+    "move_to_pose_pid": (dict(numSteps=500, dt=0.01),
+                         lambda d0, d1: d1 < 0.3),
+}
+
+
+def _counted(run):
+    """run() with every kernel's launch count and the refresh rungs set to
+    0 just before it and read just after: (its result, wall s, launch
+    counts, accepted rungs)."""
+    from bayesian_cbf_tpu_torch.models.mvgp import MVGP
+    fns = bt.counters()
+    for fn in fns.values():
+        fn.launches = 0
+    MVGP.refresh_cache.rungs = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rungs = MVGP.refresh_cache.rungs
+    return (out, wall, {k: fn.launches for k, fn in fns.items()},
+            [0, 0, 0] if rungs is None else rungs.tolist())
+
+
+def phase_deterministic(dev, card):
+    """The deterministic controllers through their entry points: the
+    pendulum's ground-truth QP episode (B = 1, 400 steps) with the
+    pendulum_gt_safe verdict of scripts/check_outcomes_torch.py; the four
+    move-to-pose demos (B = 1) at the JAX tests' sizes with those tests'
+    assertions; the flagship batch without its obstacles (B = 256,
+    K = 200, 2000 steps, the flagship schedule): finite, feasible fraction
+    above 0.9.  Each run's launch counts are held to its schedule's.
+    Prints each run's wall (not a benchmark), launches and outcomes;
+    returns the launch counts per run."""
+    from bayesian_cbf_tpu_torch.experiments import move_to_pose as tm
+    from bayesian_cbf_tpu_torch.experiments import unicycle as tu
+    from bayesian_cbf_tpu_torch.sim.rollout import simulate_unicycle_batch
+    co = _check_outcomes_torch()
+    none = dict.fromkeys(bt.counters(), 0)
+    launches = {}
+
+    (X, _, pres), wall, counts, _ = _counted(lambda: co.ground_truth_run(dev))
+    T = X.shape[0]
+    res = co.ground_truth_result(X, pres)
+    verdict = co.verdicts({"pendulum_ground_truth": res})
+    print(f"[deterministic ground truth] B=1 T={T}: wall {wall:.3f} s "
+          f"({wall * 1e3 / T:.3f} ms per step) on {card}; launches ipm "
+          f"{counts['ipm']} (schedule {T}); outcomes {res}; verdict "
+          f"{verdict}", flush=True)
+    _require(counts == {**none, "ipm": T},
+             f"ground truth: launch counts {counts}")
+    _require(bool(torch.isfinite(X).all())
+             and verdict == {"pendulum_gt_safe": True},
+             f"ground truth: pendulum_gt_safe fails ({res})")
+    launches["ground truth"] = counts
+
+    goal = torch.tensor(MOVE_GOAL, dtype=torch.float32, device=dev)
+    for name, (size, passes) in MOVE_DEMOS.items():
+        out, wall, counts, _ = _counted(lambda: getattr(tm, name)(
+            MOVE_X0, MOVE_GOAL, **size, device=dev))
+        X, T = out[0], size["numSteps"]
+        d0, d1 = (float(torch.linalg.vector_norm(X[i, :2] - goal[:2]))
+                  for i in (0, -1))
+        want = 0 if name == "move_to_pose_pid" else T
+        finite = all(bool(torch.isfinite(a).all()) for a in out)
+        print(f"[deterministic {name}] B=1 T={T} dt={size['dt']}: wall "
+              f"{wall:.3f} s ({wall * 1e3 / T:.3f} ms per step); launches "
+              f"ipm {counts['ipm']} (schedule {want}); distance to the goal "
+              f"{d0:.4f} -> {d1:.4f}, finite {finite}", flush=True)
+        _require(counts == {**none, "ipm": want},
+                 f"{name}: launch counts {counts}")
+        _require(finite and passes(d0, d1),
+                 f"{name}: the JAX test's assertion fails ({d0} -> {d1})")
+        launches[name] = counts
+
+    sim = _no_obstacle_sim(dev)
+    x0s = bt.unicycle_x0s(dev)
+    out, wall, counts, rungs = _counted(lambda: simulate_unicycle_batch(
+        sim, x0s, generator=torch.Generator(device=dev).manual_seed(1)))
+    lrn = sim.learned_dynamics
+    B, T = x0s.shape[0], sim.numSteps
+    want = _expected_launches(lrn, T, sim.controller.warm_start)
+    gd = tu.goal_distance(out)
+    finite = bool(torch.isfinite(out.X).all() and torch.isfinite(out.U).all())
+    feasible = float(out.info.feasible.float().mean())
+    print(f"[deterministic no obstacles] B={B} K={lrn.max_train} T={T}: "
+          f"wall {wall:.3f} s ({B * T / wall:.1f} steps/s, fits included) "
+          f"on {card}; launches {counts} (schedule: ipm {want['ipm']}, "
+          f"kinv_logdet {want['kinv_logdet']}, chol_linv "
+          f"{want['chol_linv']}); accepted rungs {rungs}; finite {finite}, "
+          f"feasible fraction {feasible:.4f}, mean goal distance "
+          f"{float(gd.mean()):.4f}, within 1.0 of the goal "
+          f"{float((gd < 1.0).float().mean()):.4f}", flush=True)
+    _require(counts == want, f"no obstacles: launch counts {counts} != "
+             f"{want}")
+    _require(sum(rungs) == B * _n_fits(lrn, T),
+             f"no obstacles: accepted rungs {rungs}")
+    _require(finite and feasible > 0.9,
+             f"no obstacles: finite {finite}, feasible {feasible}")
+    launches["no obstacles"] = counts
     return launches
 
 
@@ -1577,18 +1768,43 @@ def main():
     cones = lambda B, seed, **kw: [
         torch.tensor(a, dtype=torch.float32, device=dev)
         for a in _random_cones(B, seed, **kw)]
+    # the real cones' dimensions: the flagship controller's (objective, CLC,
+    # two CBCs), the pendulum controller's, the ground-truth QP's, the
+    # mean-CLF QP's, the flagship's without obstacles and the mean-CBF
+    # unicycle experiment's (CBCs of variance below 1e-3 as rays)
+    main_dims, pend_dims = (4, 4, 4, 4), (3, 3, 1)
+    gt_dims, mc_dims = (3, 1, 1, 1, 1), (4, 1, 1, 1, 1, 1)
+    free_dims, collide_dims = (4, 4), (4, 1, 1, 1)
     ipm = _check_ipm_kernel(dev, "(4, 4, 4)", cones(256, 0),
-                            list(_step0_cones(dev, x0s, 1)), cones(1003, 4))
-    pend_cones = list(_pendulum_step0_cones(dev, px0s))
+                            list(_step0_cones(dev, x0s, 1,
+                                              want_dims=main_dims)),
+                            cones(1003, 4), main_dims)
+    pend_cones = list(_pendulum_step0_cones(dev, px0s, want_dims=pend_dims))
     ipm_p = _check_ipm_kernel(dev, "(4, 3, 3)",
                               cones(256, 2, dims=(3, 3, 1)), pend_cones,
-                              cones(1003, 6, dims=(3, 3, 1)))
+                              cones(1003, 6, dims=(3, 3, 1)), pend_dims)
+    gt_cones = _ground_truth_cones(dev)
+    ipm_gt = _check_ipm_kernel(dev, "(3, 5, 3)",
+                               cones(256, 13, nx=3, dims=gt_dims), gt_cones,
+                               cones(1003, 14, nx=3, dims=gt_dims), gt_dims)
+    mc_cones = _mean_clf_cones(dev)
+    ipm_mc = _check_ipm_kernel(dev, "(4, 6, 4)", cones(256, 15, dims=mc_dims),
+                               mc_cones, cones(1003, 16, dims=mc_dims),
+                               mc_dims)
+    free_cones = list(_step0_cones(dev, x0s, 1, _no_obstacle_sim(dev),
+                                   want_dims=free_dims))
+    ipm_free = _check_ipm_kernel(dev, "(4, 2, 4)", cones(256, 17, dims=(4, 4)),
+                                 free_cones, cones(1003, 18, dims=(4, 4)),
+                                 free_dims)
     from bayesian_cbf_tpu_torch.experiments import unicycle as tu
     collide = tu.make_ackermann_tracking_sim(**tu.EXPERIMENTS["mean_cbf"],
                                              device=dev)
     ipm["b1"] = _check_ipm_b1(dev, "(4, 4, 4) mean CBF", list(_step0_cones(
-        dev, x0s, 1, collide, want_dims=(4, 1, 1, 1))))
-    ipm_p["b1"] = _check_ipm_b1(dev, "(4, 3, 3)", pend_cones)
+        dev, x0s, 1, collide, want_dims=collide_dims)), collide_dims)
+    ipm_p["b1"] = _check_ipm_b1(dev, "(4, 3, 3)", pend_cones, pend_dims)
+    ipm_gt["b1"] = _check_ipm_b1(dev, "(3, 5, 3)", gt_cones, gt_dims)
+    ipm_mc["b1"] = _check_ipm_b1(dev, "(4, 6, 4)", mc_cones, mc_dims)
+    ipm_free["b1"] = _check_ipm_b1(dev, "(4, 2, 4)", free_cones, free_dims)
     chol["kinv_logdet"]["b1"] = chol_b1["kinv_logdet"]
     chol["chol_linv"]["b1"] = chol_b1["chol_linv"]
     gram = _check_gram_kernel(dev)
@@ -1611,6 +1827,7 @@ def main():
         **{f"pendulum {k}": v[1] for k, v in pend.items()}}
     profile_stats = phase_pendulum_profile(dev, px0s)
     runs.update(phase_outcomes(dev, card))
+    runs.update(phase_deterministic(dev, card))
 
     def entry(name, source, replaces, run, stats, counter=None):
         counter = counter or name
@@ -1629,6 +1846,12 @@ def main():
         entry("ipm", "ipm.cu", "pallas_ipm.py:48", "main", ipm),
         entry("ipm (4, 3, 3)", "ipm.cu", "pallas_ipm.py:48",
               "pendulum continuous", ipm_p, counter="ipm"),
+        entry("ipm (3, 5, 3)", "ipm.cu", "pallas_ipm.py:48", "ground truth",
+              ipm_gt, counter="ipm"),
+        entry("ipm (4, 6, 4)", "ipm.cu", "pallas_ipm.py:48",
+              "move_to_pose_clf_cartesian", ipm_mc, counter="ipm"),
+        entry("ipm (4, 2, 4)", "ipm.cu", "pallas_ipm.py:48", "no obstacles",
+              ipm_free, counter="ipm"),
         entry("chol_dinv", "chol_blocked.cu", "pallas_chol.py:105", "a", dinv),
         entry("sweep", "sweep.cu", "pallas_sweep.py:203", "b", sweep),
         entry("gram", "gram.cu", "gram.py:54", "c", gram),

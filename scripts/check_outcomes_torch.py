@@ -15,15 +15,16 @@ Runs, at the experiments' full configurations (f32 on the card):
     steps, a refit every 10, 25 Adam iterations) and batches of 64
     episodes, starts perturbed by 0.05 N(0, 1) from (7 pi / 12, 0), on the
     reference schedule and with continuous updates (bench.py's
-    configuration).
+    configuration);
+  * the pendulum's ground-truth CLF-CBF QP episode
+    (`run_pendulum_ground_truth`: 400 steps, dt 0.01, from (5 pi / 12, 0)).
 
-Prints one JSON object: `results`, `verdicts`, `not_ported` (verdicts of
-the JAX script that the port cannot run yet, with the reason; they count
-neither as passed nor toward `all_pass`), `all_pass` and `wall_s`.
-Results are not rounded before the thresholds.  Exit code 1 when a
-verdict fails.  It refuses to run without CUDA, takes no options and
-catches nothing.  `chip_smoke.py` loads this file by path and runs the
-single episodes through its functions.
+Prints one JSON object: `results`, `verdicts` (every verdict of
+scripts/check_outcomes.py but kernel_parity, which chip_smoke.py holds),
+`all_pass` and `wall_s`.  Results are not rounded before the thresholds.
+Exit code 1 when a verdict fails.  It refuses to run without CUDA, takes
+no options and catches nothing.  `chip_smoke.py` loads this file by
+path and runs the single episodes through its functions.
 """
 import json
 import math
@@ -45,14 +46,6 @@ UNICYCLE_RUNS = {
     "learning": "unicycle_learning_helps_avoid_getting_stuck",
     "no_learning": "unicycle_no_learning_gets_stuck",
 }
-
-NOT_PORTED = {
-    "pendulum_gt_safe": "not ported: the ground-truth QP solves 5 cones at "
-                        "(nx, C, d) = (3, 5, 3), and the IPM kernel holds at "
-                        "most four cones a problem (ROADMAP.md B.2); it "
-                        "counts neither as passed nor toward all_pass",
-}
-
 
 def unicycle_run(name, device):
     """(sim, outputs (T, ...)) of one README experiment, seed 0."""
@@ -96,6 +89,20 @@ def pendulum_result(out):
                 feasible=float(out.info.feasible.to(th.dtype).mean()),
                 certified=float(out.info.certified.to(th.dtype).mean()),
                 finite=bool(torch.isfinite(out.X).all()))
+
+
+def ground_truth_run(device):
+    """(X (T, 2), U (T, 1), pres (T,)) of the ground-truth QP episode."""
+    from bayesian_cbf_tpu_torch.experiments import pendulum as tp
+    return tp.run_pendulum_ground_truth(device=device)
+
+
+def ground_truth_result(X, pres):
+    from bayesian_cbf_tpu_torch.experiments import pendulum as tp
+    th = X[:, 0]
+    return dict(damage=float(tp.pendulum_damage_fraction(th)),
+                wedge_frac=float(tp.pendulum_wedge_fraction(th)),
+                theta_end=float(th[-1]), max_pres=float(pres.max()))
 
 
 def batched_learning_result(device, B=32):
@@ -156,6 +163,14 @@ VERDICTS = (
      and r["pendulum_online"]["wedge_frac"] <= 0.02
      and (math.pi / 4 + math.pi / 8 - 0.02
           < r["pendulum_online"]["theta_end"] < 1.9)),
+    # the ground-truth QP holds the barrier exactly: it parks at the wedge
+    # edge, never enters, and every solve is clean
+    ("pendulum_gt_safe", ("pendulum_ground_truth",),
+     lambda r: r["pendulum_ground_truth"]["wedge_frac"] == 0.0
+     and r["pendulum_ground_truth"]["damage"] == 0.0
+     and r["pendulum_ground_truth"]["max_pres"] < 1e-4
+     and (math.pi / 4 + math.pi / 8 - 0.05
+          < r["pendulum_ground_truth"]["theta_end"] < 1.45)),
     ("pendulum_batched_safe", ("pendulum_batched",),
      lambda r: _pendulum_batch_safe(r["pendulum_batched"])),
     ("pendulum_batched_cu_safe", ("pendulum_batched_cu",),
@@ -187,10 +202,12 @@ def main():
            for name in UNICYCLE_RUNS}
     res["batched_learning"] = batched_learning_result(dev)
     res["pendulum_online"] = pendulum_result(pendulum_run(dev)[1])
+    X, _, pres = ground_truth_run(dev)
+    res["pendulum_ground_truth"] = ground_truth_result(X, pres)
     res["pendulum_batched"] = pendulum_batched_result(dev, False)
     res["pendulum_batched_cu"] = pendulum_batched_result(dev, True)
     v = verdicts(res)
-    out = dict(results=res, verdicts=v, not_ported=NOT_PORTED,
+    out = dict(results=res, verdicts=v,
                all_pass=all(v.values()) and len(v) == len(VERDICTS),
                wall_s=time.perf_counter() - t0)
     print(json.dumps(out), flush=True)

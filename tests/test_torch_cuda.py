@@ -754,3 +754,73 @@ def test_ipm_rejects_what_the_kernel_cannot_read(cuda):
     with pytest.raises(ValueError):
         ik.ipm(*(torch.tensor(a, dtype=torch.float32, device=cuda)
                  for a in _mixed_cones(4, 0, nx=5)), 5, 1e-10)
+
+
+# the instantiations added with the group width: (3, 5, 3) and (4, 6, 4) at
+# eight lanes a problem (four problems a block), (4, 2, 4) at four
+WIDE_SHAPES = [(3, (3, 1, 1, 1, 1)), (4, (4, 1, 1, 1, 1, 1)), (4, (4, 4))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,dims", WIDE_SHAPES)
+@pytest.mark.parametrize("B", [1, 3, 256, 1003])
+def test_ipm_group_width_shapes_match_plain(cuda, B, nx, dims):
+    """Batches cut from one set of 1003 random problems of the shape, one
+    problem to many blocks and a ragged last block: contiguous finite
+    outputs, the rows of the whole set's solve bit for bit, the plain
+    version's optimal values wherever both converge (1e-3 relative, two
+    f32 roundings), padded ray tails exactly 0; the large batches also
+    within 2x plain's median score and 5% of its converged count."""
+    whole = [torch.tensor(a, dtype=torch.float32, device=cuda)
+             for a in _mixed_cones(1003, 20 + len(dims), nx=nx, dims=dims)]
+    args = [a[:B].contiguous() for a in whole]
+    C, d = len(dims), max(dims)
+    got = ik.ipm(*args, 25, 1e-10)
+    want = ik.ipm_plain(*args, 25, 1e-10)
+    torch.cuda.synchronize()
+    assert [tuple(t.shape) for t in got] == [(B, nx), (B, C, d), (B, C, d)]
+    assert all(t.is_contiguous() and bool(torch.isfinite(t).all())
+               for t in got)
+    for g, w in zip(got, ik.ipm(*whole, 25, 1e-10)):
+        assert torch.equal(g, w[:B])
+    for ci, dd in enumerate(dims):
+        if dd < d:
+            assert not bool(got[1][:, ci, dd:].any())
+            assert not bool(got[2][:, ci, dd:].any())
+    sg = ik.score_padded(*args[:3], *got)
+    sw = ik.score_padded(*args[:3], *want)
+    both = (sg < 1e-3) & (sw < 1e-3)
+    cost = lambda x: (args[0] * x).sum(-1)
+    assert bool(((cost(got[0]) - cost(want[0])).abs()
+                 <= 1e-3 * (1.0 + cost(want[0]).abs()))[both].all())
+    if B >= 256:
+        assert int(both.sum()) >= B // 2
+        assert float(sg.median()) <= 2.0 * float(sw.median()) + 1e-6
+        assert int((sg < 1e-3).sum()) >= int((sw < 1e-3).sum()) - B // 20
+
+
+@pytest.mark.cuda
+def test_ipm_raises_on_an_uninstantiated_shape(cuda):
+    """(4, 9, 4) has no instantiation: ValueError naming the ones there
+    are, and no launch; the library lists the shapes the port's paths
+    solve, each with a group width that holds its cones, and its entry
+    point refuses any other shape itself."""
+    from bayesian_cbf_tpu_torch.ops import _build
+    args = [torch.tensor(a, dtype=torch.float32, device=cuda)
+            for a in _mixed_cones(4, 0, dims=(4,) + (1,) * 8)]
+    before = ik.ipm.launches
+    with pytest.raises(ValueError, match="instantiated"):
+        ik.ipm(*args, 5, 1e-10)
+    assert ik.ipm.launches == before
+    lib = _build.load("ipm")
+    shapes = ik.instantiated_shapes()
+    assert {(4, 4, 4), (4, 3, 3), (3, 5, 3), (4, 6, 4), (4, 2, 4)} \
+        <= set(shapes)
+    for nx, C, d in shapes:
+        assert ik.group_width(nx, C, d) in (4, 8)
+        assert C <= ik.group_width(nx, C, d)
+    assert ik.group_width(4, 9, 4) == 0
+    out = [torch.empty_like(a) for a in args[3:]]
+    assert lib.ipm_launch(*(a.data_ptr() for a in args + out), 4, 4, 9, 4,
+                          5, 1e-10,
+                          torch.cuda.current_stream(cuda).cuda_stream) != 0

@@ -413,6 +413,8 @@ def _passing():
                                     feasible=0.99, mean_damage=0.0,
                                     frac_damaged=0.0, frac_wedge_gt_2pct=0.0,
                                     min_final_theta=edge + 0.1),
+        "pendulum_ground_truth": dict(damage=0.0, wedge_frac=0.0,
+                                      theta_end=1.28, max_pres=3e-7),
     }
 
 
@@ -454,6 +456,14 @@ EDGES = [
      EDGE + 1e-9, EDGE),
     ("pendulum_batched_cu_safe", "pendulum_batched_cu", "mean_damage", 0.01,
      0.0101),
+    ("pendulum_gt_safe", "pendulum_ground_truth", "wedge_frac", 0.0,
+     0.0025),
+    ("pendulum_gt_safe", "pendulum_ground_truth", "damage", 0.0, 0.0025),
+    ("pendulum_gt_safe", "pendulum_ground_truth", "max_pres", 0.99e-4,
+     1e-4),
+    ("pendulum_gt_safe", "pendulum_ground_truth", "theta_end",
+     EDGE - 0.0499, EDGE - 0.05),
+    ("pendulum_gt_safe", "pendulum_ground_truth", "theta_end", 1.4499, 1.45),
     ("feasibility_floor", "bayes_cbf", "feasible", 0.95, 0.9499),
     ("feasibility_floor", "learning", "feasible", 0.95, 0.9499),
     ("feasibility_floor", "pendulum_online", "feasible", 0.95, 0.9499),
@@ -478,17 +488,20 @@ def test_verdict_threshold_edge(verdict, run, field, good, bad):
 
 def test_verdict_set_and_not_ported():
     """Every verdict of scripts/check_outcomes.py but kernel_parity (the
-    card run of chip_smoke.py holds the kernels) and pendulum_gt_safe,
-    which is reported as not ported and counts nowhere; a verdict is
-    decided only when its results are all present."""
+    card run of chip_smoke.py holds the kernels); none is left unported,
+    so all of them count toward all_pass; a verdict is decided only when
+    its results are all present."""
     gate = _gate()
     names = {"collides", "safe", "feasible_steps_respect_cbc",
              "learning_passes", "no_learning_stuck", "batched_learning_passes",
-             "pendulum_online_no_damage", "pendulum_batched_safe",
-             "pendulum_batched_cu_safe", "feasibility_floor"}
+             "pendulum_online_no_damage", "pendulum_gt_safe",
+             "pendulum_batched_safe", "pendulum_batched_cu_safe",
+             "feasibility_floor"}
     assert set(gate.verdicts(_passing())) == names
-    assert set(gate.NOT_PORTED) == {"pendulum_gt_safe"}
-    assert "(3, 5, 3)" in gate.NOT_PORTED["pendulum_gt_safe"]
+    assert len(gate.VERDICTS) == len(names)
+    assert not hasattr(gate, "NOT_PORTED")
+    assert set(gate.verdicts({"pendulum_ground_truth": _passing()[
+        "pendulum_ground_truth"]})) == {"pendulum_gt_safe"}
     single = {k: v for k, v in _passing().items()
               if k in ("mean_cbf", "bayes_cbf", "learning", "no_learning",
                        "pendulum_online")}
