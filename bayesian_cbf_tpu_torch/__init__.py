@@ -6,3 +6,5 @@ The hand-written kernels (`csrc/`) are built at first use, never at
 import; a wrapper picks the kernel or its plain PyTorch version by the
 device of the tensor it is given.
 """
+
+__version__ = "0.2.0"

@@ -520,10 +520,15 @@ struct Shape {
 //  (4, 6, 4)  group width 8: the deterministic mean-CLF QP, [u (2), relax,
 //             t] with cones of dimensions (4, 1, 1, 1, 1, 1);
 //  (4, 2, 4)  the unicycle controller without obstacles (objective, CLC).
+// A source that includes this file after defining IPM_SHAPES instantiates
+// its own list instead (csrc/ipm_exact.cu).
+#ifndef IPM_SHAPES
+#define IPM_SHAPES Shape<4, 4, 4>, Shape<4, 3, 3>, Shape<3, 5, 3>, \
+                   Shape<4, 6, 4>, Shape<4, 2, 4>
+#endif
 template <class... S>
 struct ShapeList {};
-using Shapes = ShapeList<Shape<4, 4, 4>, Shape<4, 3, 3>, Shape<3, 5, 3>,
-                         Shape<4, 6, 4>, Shape<4, 2, 4>>;
+using Shapes = ShapeList<IPM_SHAPES>;
 
 // f(S{}) for the shape S of Shapes that is (nx, C, d); false if none is.
 template <class F, class... S>

@@ -64,6 +64,7 @@ def make_pendulum_online_sim(
         enable_learning=True, dt=dt,
         training_iter_warm=training_iter_warm,
         continuous_updates=continuous_updates,
+        continuous_full_refresh=not continuous_updates,
         first_fit_coarse_stride=first_fit_coarse_stride,
         first_fit_refine_iter=first_fit_refine_iter)
     controller = LearnedSOCPControllerConfig(

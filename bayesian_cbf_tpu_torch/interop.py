@@ -1,5 +1,6 @@
 """Carry learner state across from numpy arrays (for example arrays a JAX
-run produced) into the port, and back.
+run produced) into the port, and back; and a JAX serving controller's
+carry into the port's.
 
 Every array carries the leading episode axis of the port's tensors.
 """
@@ -72,3 +73,38 @@ def learned_state_from_numpy(dyn: LearnedShiftInvariantDynamics,
         base = base._replace(cache=MVGPCache(*(
             _t(cache[f], device, dtype) for f in MVGPCache._fields)))
     return base
+
+
+def serving_carry_from_numpy(sim, leaves):
+    """The port's `CompiledController` carry from a JAX
+    `CompiledController.state()` as a list of numpy arrays in JAX's leaf
+    order (what `np.load` of its checkpoint gives, arr_0, arr_1, ...):
+    x (n,), the seven MVGPParams, buf and data (X, UH, Xdot, mask each),
+    the cache (L, alpha, Linv), prev_x, prev_u, have_prev, count_pairs,
+    count_res, the PRNG key, then the warm state (x, S, Z) when the
+    controller warm-starts.  Every tensor gains the episode axis of 1 and
+    lives on the sim's device in its dtype.  The key is dropped: the port
+    draws from its generator."""
+    lrn = sim.learned_dynamics
+    p0 = sim.planner.p0
+    device, dtype = p0.device, p0.dtype
+    it = iter([np.asarray(a)[None] for a in leaves])
+    x = _t(next(it), device, dtype)
+    take = lambda fields: {f: next(it) for f in fields}
+    params = take(MVGPParams._fields)
+    buf, data = take(MVGPData._fields), take(MVGPData._fields)
+    cache = take(MVGPCache._fields)
+    state = learned_state_from_numpy(lrn, params, device, dtype, buf=buf,
+                                     data=data, cache=cache)
+    prev_x, prev_u = (_t(next(it), device, dtype) for _ in range(2))
+    have_prev = torch.as_tensor(np.array(next(it)), device=device).to(
+        torch.bool)
+    count_pairs, count_res = (torch.as_tensor(np.array(next(it)),
+                                              device=device).to(torch.int32)
+                              for _ in range(2))
+    next(it)                                             # the PRNG key
+    state = state._replace(prev_x=prev_x, prev_u=prev_u, have_prev=have_prev,
+                           count_pairs=count_pairs, count_res=count_res)
+    if not sim.controller.warm_start:
+        return (x, state)
+    return (x, state, tuple(_t(next(it), device, dtype) for _ in range(3)))

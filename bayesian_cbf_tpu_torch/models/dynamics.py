@@ -251,8 +251,13 @@ class LearnedShiftInvariantDynamics(NamedTuple):
     first_fit_refine_iter: int = 15
     # rank-1 posterior appends: each accepted sample enters the cache the
     # step it is recorded, while the reservoir fills; the scheduled refits
-    # still own the hyperparameters and, once it is full, the cache
+    # still own the hyperparameters
     continuous_updates: bool = False
+    # with continuous_updates, what happens once the reservoir is full:
+    # True (serving, deploy.CompiledController) refreshes the whole cache
+    # on every accepted replacement; False (the batched rollouts) leaves
+    # the cache to the scheduled refits
+    continuous_full_refresh: bool = True
 
     # ------------------------------------------------------------ state
 
@@ -396,6 +401,8 @@ class LearnedShiftInvariantDynamics(NamedTuple):
             count_res=cr + accept.to(cr.dtype))
         if not self.continuous_updates:
             return new
+        if self.continuous_full_refresh:
+            return self._serving_update(new, slot, accept, cr < cap)
         # row-gated rank-1 append while the reservoir fills; once it is
         # full the scheduled refits own the cache.  The fitted snapshot
         # `data` takes the row where the cache does.
@@ -404,6 +411,35 @@ class LearnedShiftInvariantDynamics(NamedTuple):
                                          wr)
         data = _write_row(state.data, hit & wr[:, None], xprev_si, uh, resid)
         return new._replace(data=data, cache=cache)
+
+    def _serving_update(self, new: LearnedDynState, slot, accept, filling
+                        ) -> LearnedDynState:
+        """The serving semantics of an accepted sample: while the reservoir
+        fills (`filling`, the count before this sample below capacity) a
+        rank-1 `cache_append` of its row, once it is full a whole
+        `refresh_cache`; either way the fitted snapshot `data` becomes the
+        reservoir.  An episode whose new cache is not finite keeps its old
+        cache and snapshot.  Which episodes take which branch is read on
+        the host, so each branch runs only on its own episodes."""
+        acc, fill = torch.stack([accept, filling]).tolist()
+        for branch in (True, False):
+            rows = [b for b, (a, f) in enumerate(zip(acc, fill))
+                    if a and f == branch]
+            if not rows:
+                continue
+            idx = torch.tensor(rows, device=slot.device)
+            part = _map(lambda a: a[idx], new)
+            with torch.no_grad():
+                cache = (self.gp.cache_append(part.params, part.buf,
+                                              part.cache, slot[idx])
+                         if branch else
+                         self.gp.refresh_cache(part.params, part.buf))
+            data, cache = where_tree(_tree_finite(cache), (part.buf, cache),
+                                     (part.data, part.cache))
+            put = lambda a, p: a.index_copy(0, idx, p)
+            new = new._replace(data=_map(put, new.data, data),
+                               cache=_map(put, new.cache, cache))
+        return new
 
     def _refit(self, state: LearnedDynState, params: MVGPParams
                ) -> LearnedDynState:
@@ -453,3 +489,25 @@ class LearnedShiftInvariantDynamics(NamedTuple):
         if not self.warm_refits_differ:
             return self.fit_now(state)
         return self.fit_now(state, training_iter=self.training_iter_warm)
+
+    def should_fit_at(self, t):
+        """The reference's refit schedule: a positive multiple of
+        train_every_n_steps, with learning on.  `t` is an int or a tensor
+        of step counts."""
+        if not self.enable_learning or self.train_every_n_steps <= 0:
+            return t < 0
+        return (t > 0) & (t % self.train_every_n_steps == 0)
+
+    def observe(self, state: LearnedDynState, x, u,
+                j: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> LearnedDynState:
+        """`record`, then a refit at the full Adam budget (`fit_now`) of
+        each episode whose pair count before this record is on the
+        schedule and whose reservoir is not empty: the serving tick's
+        learning step."""
+        do_fit = self.should_fit_at(state.count_pairs) & (state.count_res > 0)
+        state = self.record(state, x, u, j=j, generator=generator)
+        if not bool(do_fit.any()):
+            return state
+        return where_tree(do_fit, self.fit_now(state), state)

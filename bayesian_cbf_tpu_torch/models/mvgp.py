@@ -153,6 +153,15 @@ class MVGP(NamedTuple):
             (batch, capacity, self.x_dim), dtype=dtype, device=device),
             Linv=eye.clone())
 
+    def make_data(self, X, U, Xdot) -> MVGPData:
+        """A training set of (B, k) rows, all valid: X (B, k, n),
+        U (B, k, m), Xdot (B, k, n)."""
+        return MVGPData(X=X, UH=torch.cat([torch.ones_like(U[..., :1]), U],
+                                          -1),
+                        Xdot=Xdot, mask=torch.ones(X.shape[:-1],
+                                                   dtype=X.dtype,
+                                                   device=X.device))
+
     # ---------------------------------------------------------- kernel
 
     def k_xx(self, params: MVGPParams, X1, X2):
@@ -376,6 +385,12 @@ class MVGP(NamedTuple):
             vbp = cache.Linv @ kbp
         return prior - vb.transpose(-1, -2) @ vbp
 
+    def fu_mean(self, params, data, cache, u, x):
+        """Posterior mean of F(x)^T [1; u]: (B, n) for controls u (B, m)
+        and states x (B, n)."""
+        uh = torch.cat([torch.ones_like(u[:, :1]), u], -1)
+        return (self.fT_post(params, data, cache, x) @ uh[..., None])[..., 0]
+
     def posterior_derivatives(self, params, data, cache, x):
         """The posterior at states x (B, n) with its x-derivatives, in
         closed form from the RBF cross-covariance (the JAX package takes
@@ -410,6 +425,35 @@ class MVGP(NamedTuple):
         D2 = (prior2[..., None, None] * params.B[:, None, None]
               - torch.einsum('bkaj,bkcl->bacjl', dvb, dvb))
         return fT, dfT, Bk, D1, D2
+
+    def cache_append(self, params: MVGPParams, data: MVGPData,
+                     cache: MVGPCache, slot) -> MVGPCache:
+        """O(K^2) prefix append of row `slot` (B,) to the posterior cache
+        of the serving path: the active rows form the prefix [0, slot) and
+        `data` already holds the new row.  With the masked Gram's row c
+        before `slot` and its diagonal d, l21 = Linv c and l22 = sqrt(
+        max(d - |l21|^2, jitter)); L's row becomes [l21, l22], Linv's
+        [-(l21^T Linv) / l22, 1 / l22] (the rows past the prefix are the
+        identity's), and alpha is solved against the new L.  Each appended
+        row keeps the Gram nugget of its own step, so the factor tracks a
+        full `refresh_cache` of the same buffer up to that drift."""
+        Kb = self.masked_kb(params, data)
+        batch, K = Kb.shape[0], Kb.shape[-1]
+        bi = torch.arange(batch, device=Kb.device)
+        before = torch.arange(K, device=Kb.device)[None] < slot[:, None]
+        c = Kb[bi, slot] * before
+        d = Kb[bi, slot, slot]
+        l21 = (cache.Linv @ c[..., None])[..., 0]
+        l22 = torch.sqrt(torch.clamp(d - torch.sum(l21 * l21, -1),
+                                     min=self.jitter))
+        L = cache.L.clone()
+        L[bi, slot] = l21
+        L[bi, slot, slot] = l22
+        Linv = cache.Linv.clone()
+        Linv[bi, slot] = -(l21[:, None] @ cache.Linv)[:, 0] / l22[:, None]
+        Linv[bi, slot, slot] = 1.0 / l22
+        alpha = torch.cholesky_solve(self.residual_Y(params, data), L)
+        return MVGPCache(L=L, alpha=alpha, Linv=Linv)
 
     def cache_append_row(self, params: MVGPParams, data: MVGPData,
                          cache: MVGPCache, slot, write) -> MVGPCache:

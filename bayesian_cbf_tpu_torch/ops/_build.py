@@ -24,6 +24,10 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# per source: nvcc flags beyond NVCC_FLAGS, and the .cu files it includes
+_EXTRA_FLAGS = {"ipm_exact": ("-fmad=false",)}
+_INCLUDES = {"ipm_exact": ("ipm.cu",)}
+
 _LIBS: dict = {}
 
 
@@ -40,10 +44,15 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + _EXTRA_FLAGS.get(name, ())
+
+
 def _digest(src: Path) -> str:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
-    for dep in sorted(CSRC.glob("*.cuh")) + [src]:
+    h.update(" ".join(_flags(src.stem)).encode())
+    deps = [CSRC / f for f in _INCLUDES.get(src.stem, ())]
+    for dep in sorted(CSRC.glob("*.cuh")) + deps + [src]:
         h.update(dep.name.encode())
         h.update(dep.read_bytes())
     return h.hexdigest()[:16]
@@ -59,7 +68,8 @@ def _target(name: str) -> Path:
 def _start(name: str, out: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp
 
@@ -165,6 +175,7 @@ _SIGNATURES = {
         "gram_launch": [_VP] * 4 + [_F32, _VP] + [_INT] * 7 + [_VP],
     },
 }
+_SIGNATURES["ipm_exact"] = _SIGNATURES["ipm"]
 KERNEL_SOURCES = tuple(_SIGNATURES)
 
 

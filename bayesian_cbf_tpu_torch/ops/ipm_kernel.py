@@ -22,20 +22,38 @@ from . import _build
 _EPS = 1e-14
 _BIG = 1e10
 
+# the kernel's two builds: csrc/ipm.cu, and csrc/ipm_exact.cu (the same
+# kernel at other shapes, built without contracted multiply-adds)
+SOURCES = ("ipm", "ipm_exact")
+
+
+def source_of(nx: int, C: int, d: int):
+    """The source whose build instantiates (nx, C, d), or None.  Builds the
+    kernel's libraries at first use."""
+    for name in SOURCES:
+        if _build.load(name).ipm_group_width(nx, C, d):
+            return name
+    return None
+
+
 def group_width(nx: int, C: int, d: int) -> int:
     """Lanes per problem of the kernel instantiated at (nx, C, d): the
     smaller of 4 and 8 that holds the C cones, one lane each (a 32-thread
-    block holds 32 // width problems); 0 where csrc/ipm.cu instantiates
-    none.  Builds the kernel's library at first use."""
-    return _build.load("ipm").ipm_group_width(nx, C, d)
+    block holds 32 // width problems); 0 where no build instantiates it."""
+    name = source_of(nx, C, d)
+    return _build.load(name).ipm_group_width(nx, C, d) if name else 0
 
 
 def instantiated_shapes() -> tuple:
-    """The (nx, C, d) that csrc/ipm.cu instantiates, in its order."""
+    """The (nx, C, d) that the builds instantiate, in the order of SOURCES
+    and of each source's list."""
     cap = 16
-    buf = (ctypes.c_int * (3 * cap))()
-    n = _build.load("ipm").ipm_shapes(ctypes.addressof(buf), cap)
-    return tuple(tuple(buf[3 * i:3 * i + 3]) for i in range(min(n, cap)))
+    out = ()
+    for name in SOURCES:
+        buf = (ctypes.c_int * (3 * cap))()
+        n = _build.load(name).ipm_shapes(ctypes.addressof(buf), cap)
+        out += tuple(tuple(buf[3 * i:3 * i + 3]) for i in range(min(n, cap)))
+    return out
 
 
 # ---- batched cone algebra on (..., C, d) blocks --------------------------
@@ -290,11 +308,12 @@ def ipm(c, Gp, hp, sx, sS, sZ, iters: int, tol: float):
         return ipm_plain(c, Gp, hp, sx, sS, sZ, iters, tol)
     if c.device.type != "cuda":
         raise ValueError(f"ipm: no kernel for device {c.device}")
-    lib = _build.load("ipm")
-    if not lib.ipm_group_width(nx, C, d):
+    name = source_of(nx, C, d)
+    if name is None:
         raise ValueError(f"ipm: no kernel instantiation for (nx, C, d)="
                          f"({nx}, {C}, {d}); instantiated: "
                          f"{instantiated_shapes()}")
+    lib = _build.load(name)
     x, S, Z = torch.empty_like(sx), torch.empty_like(sS), torch.empty_like(sZ)
     rc = lib.ipm_launch(c.data_ptr(), Gp.data_ptr(), hp.data_ptr(),
                         sx.data_ptr(), sS.data_ptr(), sZ.data_ptr(),

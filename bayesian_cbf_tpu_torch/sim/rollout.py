@@ -5,7 +5,11 @@ moments -> closed-form cones -> SOCP (one IPM launch) -> reservoir record
 -> Euler step of the true dynamics.  The rollout is cut into segments at
 the static refit steps (`fit_segments`); between segments the learner
 refits every episode with a non-empty reservoir.  Nothing in the step
-loop reads a device value on the host.
+loop reads a device value on the host, unless the learner makes the
+serving updates (`continuous_updates` with `continuous_full_refresh`),
+which read their branch per episode there.  `UnicycleSim.step` is the
+serving tick's step (`deploy.CompiledController`): the refit runs inside
+it, through `observe`.
 """
 from __future__ import annotations
 
@@ -58,6 +62,38 @@ class UnicycleSim(NamedTuple):
         return bayes_clf_control(cfg_full, self.clf, self.cbfs, self.planner,
                                  mom, x0s, 0, warm=w0)[2]
 
+    def _step_impl(self, carry, t: int, learn_fn, j, generator):
+        x, dyn = carry[0], carry[1]
+        warm = carry[2] if len(carry) == 3 else None
+        lrn = self.learned_dynamics
+        mom = lrn.moments(dyn, x)
+        out = bayes_clf_control(self.controller, self.clf, self.cbfs,
+                                self.planner, mom, x, t, warm=warm)
+        u, info = out[0], out[1]
+        knl = lrn.kernel_channels(dyn, mom, u)
+        dyn = learn_fn(dyn, x, u, j=j, generator=generator)
+        x_next, xdot = self.true_dynamics.step(x, u, self.dt)
+        new = (x_next, dyn) if warm is None else (x_next, dyn, out[2])
+        return new, (x, u, xdot, info, knl)
+
+    def step(self, carry, t: int, j: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None):
+        """One control step of every episode: posterior moments -> cones
+        -> SOCP -> `observe` (record, and the scheduled refit at the full
+        budget) -> Euler step of the true dynamics.  carry is (x (B, n),
+        learner state), ending with the IPM warm state (x, S, Z) when
+        the controller warm-starts.  j (B,): the reservoir draws, else
+        drawn from `generator`.  Returns (carry, (x, u, xdot, info,
+        kernel channels))."""
+        return self._step_impl(carry, t, self.learned_dynamics.observe, j,
+                               generator)
+
+    def step_no_fit(self, carry, t: int, j: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None):
+        """`step` with `record` in place of `observe`: no refit."""
+        return self._step_impl(carry, t, self.learned_dynamics.record, j,
+                               generator)
+
 
 def fit_segments(numSteps: int, train_every: int, enable: bool):
     """Static refit schedule [(start, end_exclusive, fit_after), ...]: a
@@ -100,34 +136,27 @@ def _rollout(sim: UnicycleSim, x0s, generator, state0, draws):
         states, warms = state0, sim._warm0(x0s, state0)
     warm_on = sim.controller.warm_start
 
-    X = x0s
+    carry = (x0s, states) + ((warms,) if warm_on else ())
     ys = []
     fit_event = 0
     for (s, e, do_fit) in fit_segments(sim.numSteps, lrn.train_every_n_steps,
                                        lrn.enable_learning):
         for t in range(s, e):
-            mom = lrn.moments(states, X)
-            out = bayes_clf_control(sim.controller, sim.clf, sim.cbfs,
-                                    sim.planner, mom, X, t,
-                                    warm=warms if warm_on else None)
-            u, info = out[0], out[1]
-            if warm_on:
-                warms = out[2]
-            knl = lrn.kernel_channels(states, mom, u)
-            states = lrn.record(states, X, u,
-                                j=None if draws is None else draws[t],
-                                generator=generator)
-            X_next, xdot = sim.true_dynamics.step(X, u, sim.dt)
-            ys.append((X, u, xdot, info, knl))
-            X = X_next
+            carry, y = sim.step_no_fit(carry, t,
+                                       None if draws is None else draws[t],
+                                       generator)
+            ys.append(y)
         if do_fit:
             # the first event runs the first-fit program, later ones the
             # warm refit; episodes with an empty reservoir keep their state
             fit = lrn.fit_now_first if fit_event == 0 else lrn.fit_now_warm
+            states = carry[1]
             states = where_tree(states.count_res > 0, fit(states), states)
+            carry = (carry[0], states) + carry[2:]
             fit_event += 1
     Xs, U, Xdot, info, knl = _stack_steps(ys)
-    return RolloutOutputs(X=Xs, U=U, Xdot=Xdot, info=info, knl=knl), states
+    return (RolloutOutputs(X=Xs, U=U, Xdot=Xdot, info=info, knl=knl),
+            carry[1])
 
 
 def simulate_unicycle_batch(sim: UnicycleSim, x0s: torch.Tensor,

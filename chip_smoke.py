@@ -21,7 +21,8 @@ Phases (each raises on failure; nothing is caught):
                  on the ground-truth QP's at 256 states about its start,
                  (4, 6, 4) on the mean-CLF QP's at 256 move-to-pose
                  states, (4, 2, 4) on the obstacle-free batch's step-0
-                 cones.  The blocked
+                 cones, (3, 5, 4) on the car's ground-truth CBC QP's at
+                 256 states about its start.  The blocked
                  factor's kernels (the fit inverse among them), the IPM,
                  both kernels of csrc/sweep.cu and the three instances of
                  the fused Gram print their registers, stack and spill
@@ -36,7 +37,8 @@ Phases (each raises on failure; nothing is caught):
                  Run (c) must repeat its accepted rungs and outcomes to
                  the digit (REPEATED): the Gram gives the same bits.
                  At B = 1 (the single episodes of phase 7): kernels 1 and
-                 2 on a trajectory Gram and an SPD matrix (1, 200), and
+                 2 on a trajectory Gram and an SPD matrix (1, 200) and
+                 (1, 100) (the car's dynamics learning), and
                  the IPM on 256 problems launched one at a time (the mean
                  CBF's step-0 half-spaces, dims (4, 1, 1, 1), the
                  pendulum's step-0 cones and the real cones of the three
@@ -76,6 +78,23 @@ Phases (each raises on failure; nothing is caught):
                  its obstacles (B = 256, K = 200, 2000 steps, (4, 2, 4)
                  cones): walls, launch counts held to the schedule's,
                  outcomes; finite and feasible fraction above 0.9.
+  9. serving  -- the serving tick (`deploy.CompiledController`, B = 1) on
+                 the flagship learning configuration (K = 200, a refit
+                 every 400 ticks at the full budget, 2000 ticks), without
+                 and with continuous updates: the wall of each tick
+                 (median, p99), launch counts held to the schedule (the
+                 cache refreshes are the refits plus the accepted
+                 replacements), accepted rungs, min obstacle clearance
+                 above 0 and the final goal distance; a checkpoint round
+                 trip on the card (the same control bits after restore);
+                 `python -m bayesian_cbf_tpu_torch.cli
+                 unicycle_bayes_cbf_safe_obstacle` in a subprocess, its
+                 printed JSON and run directory checked; the car's ground-
+                 truth QP episode (300 steps, dt 0.01: min clearance above
+                 -0.05) and `car_learn_dynamics` at its defaults (RMSE
+                 finite and below 5), then on one set of inputs through
+                 the kernels and through their plain versions on the
+                 card and plain on the CPU in f32 and f64.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -572,7 +591,7 @@ def _check_ipm_kernel(dev, label, rand, real, many, dims):
     ms = _cuda_ms(lambda: ik.ipm(*real, *cold, 25, 1e-10), 50)
     plain_ms = _cuda_ms(lambda: ik.ipm_plain(*real, *cold, 25, 1e-10), 5)
     bound = _ipm_bound(B, nx, dims)
-    usage = _usage("ipm",
+    usage = _usage(ik.source_of(nx, C, d),
                    f"ipm_kernel<{nx}, {C}, {d}, {ik.group_width(nx, C, d)}>")
     print(f"[ipm {label}] (nx, C, d) = ({nx}, {C}, {d}), B={B}, 25 "
           f"iterations: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
@@ -862,6 +881,21 @@ def _mean_clf_cones(dev, B=256):
         NoPlanner.create(torch.tensor(MOVE_GOAL, dtype=torch.float32,
                                       device=dev)),
         dyn.f_func, dyn.g_func, x, 0)
+    Gp, hp = _pad_cones(G, h, dims)
+    return [cobj.expand(B, -1).contiguous(), Gp, hp]
+
+
+def _car_cones(dev, B=256, seed=21, scale=0.1):
+    """The car's ground-truth CBC QP at B states about its start,
+    + scale N(0, 1) from a numpy seed: dims (4, 1, 1, 1, 1), padded to
+    (3, 5, 4)."""
+    from bayesian_cbf_tpu_torch.experiments import car as tx
+    from bayesian_cbf_tpu_torch.solvers.socp import _pad_cones
+    x = np.array(tx.CAR_START)[None] + \
+        scale * np.random.default_rng(seed).normal(size=(B, 6))
+    x = torch.tensor(x, dtype=torch.float32, device=dev)
+    cobj, G, h, dims = tx.car_ground_truth_socp(
+        x, tx.car_obstacles(device=dev), torch.zeros(2, device=dev))
     Gp, hp = _pad_cones(G, h, dims)
     return [cobj.expand(B, -1).contiguous(), Gp, hp]
 
@@ -1758,6 +1792,233 @@ def phase_deterministic(dev, card):
     return launches
 
 
+def _serving_run(dev, card, continuous):
+    """2000 ticks of `CompiledController` on the flagship learning
+    configuration (one episode, K = 200, a refit every 400 ticks at the
+    full budget), counted: the wall of each tick, the launches held to the
+    schedule (one IPM a tick; the refits' Adam iterations; three
+    factorizations a cache refresh, the refreshes being the refits plus,
+    with continuous updates, the accepted replacements once the reservoir
+    is full), one accepted rung a refresh, min obstacle clearance above
+    0.  Returns (launch counts, the controller)."""
+    from bayesian_cbf_tpu_torch.deploy import CompiledController
+    from bayesian_cbf_tpu_torch.experiments import unicycle as tu
+    from bayesian_cbf_tpu_torch.sim.rollout import RolloutOutputs
+    label = "serving continuous" if continuous else "serving"
+    sim = tu.make_ackermann_tracking_sim(device=dev)
+    lrn = sim.learned_dynamics
+    T, K = sim.numSteps, lrn.max_train
+    walls, X = [], []
+
+    def run():
+        ctl = CompiledController(sim, tu.STATE_START,
+                                 torch.Generator(device=dev).manual_seed(0),
+                                 continuous_updates=continuous, device=dev)
+        for _ in range(T):
+            X.append(ctl.x)
+            t0 = time.perf_counter()
+            ctl.tick()
+            walls.append(time.perf_counter() - t0)
+        return ctl
+
+    ctl, wall, counts, rungs = _counted(run)
+    count_res = int(ctl.state()[1].count_res)
+    refits = sum(1 for t in range(1, T) if t % lrn.train_every_n_steps == 0)
+    replaced = max(0, count_res - K) if continuous else 0
+    want = dict.fromkeys(bt.counters(), 0)
+    want.update(ipm=T + int(sim.controller.warm_start),
+                kinv_logdet=refits * lrn.training_iter,
+                chol_linv=3 * (refits + replaced))
+    X = torch.cat(X)
+    out = RolloutOutputs(X=X, U=None, Xdot=None, info=None)
+    clear = float(tu.min_obstacle_clearance(sim, out).min())
+    goal = float(tu.goal_distance(out))
+    ms = np.array(walls) * 1e3
+    print(f"[{label}] B=1 K={K} T={T}, a refit every "
+          f"{lrn.train_every_n_steps} ticks ({refits}, "
+          f"{lrn.training_iter} Adam iterations each), "
+          f"{replaced} accepted replacements: per tick median "
+          f"{np.median(ms):.4f} ms, p99 {np.percentile(ms, 99):.4f} ms, max "
+          f"{ms.max():.3f} ms; {wall:.3f} s in all on {card}; launches ipm "
+          f"{counts['ipm']}, kinv_logdet {counts['kinv_logdet']}, chol_linv "
+          f"{counts['chol_linv']} (schedule: {want['ipm']}, "
+          f"{want['kinv_logdet']}, {want['chol_linv']}); accepted rungs "
+          f"{rungs}; min obstacle clearance {clear:.4f}, final goal "
+          f"distance {goal:.4f}", flush=True)
+    _require(counts == want, f"{label}: launch counts {counts} != {want}")
+    _require(sum(rungs) == refits + replaced,
+             f"{label}: accepted rungs {rungs} do not add up to "
+             f"{refits + replaced} cache refreshes")
+    _require(bool(torch.isfinite(X).all()) and clear > 0.0,
+             f"{label}: clearance {clear}")
+    return counts, ctl
+
+
+def _checkpoint_round_trip(dev, ctl):
+    """`ctl`'s carry through save_checkpoint / load_checkpoint into a new
+    controller: the next tick of both gives the same bits."""
+    import tempfile
+    from bayesian_cbf_tpu_torch.deploy import CompiledController
+    from bayesian_cbf_tpu_torch.observability.logger import (load_checkpoint,
+                                                             save_checkpoint)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "carry.npz")
+        save_checkpoint(path, ctl.state())
+        other = CompiledController(ctl.sim, np.zeros(3), device=dev)
+        other.restore(load_checkpoint(path, like=other.state()))
+        other._t = ctl.t
+        (u, _), (u2, _) = ctl.tick(draw=0), other.tick(draw=0)
+    same = np.array_equal(u, u2)
+    print(f"[serving checkpoint] after {ctl.t - 1} ticks: the restored "
+          f"controller's next control {u2.tolist()}, the live one's "
+          f"{u.tolist()}: the same bits {same}", flush=True)
+    _require(same, "checkpoint: the restored controller's control differs")
+
+
+def _cli_subprocess():
+    """`python -m bayesian_cbf_tpu_torch.cli unicycle_bayes_cbf_safe_obstacle
+    --runs-dir <tmp>`: exit 0, its last line JSON naming a run directory
+    with config.json (the experiment's name, two obstacles) and a
+    metrics.jsonl with one state a step."""
+    import subprocess
+    import sys
+    import tempfile
+    name = "unicycle_bayes_cbf_safe_obstacle"
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bayesian_cbf_tpu_torch.cli", name,
+             "--runs-dir", tmp], cwd=root, capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        _require(proc.returncode == 0,
+                 f"cli: exit {proc.returncode}: {proc.stderr[-2000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        run_dir = out["run_dir"]
+        with open(os.path.join(run_dir, "config.json")) as f:
+            cfg = json.load(f)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            states = sum('"vis/state"' in line for line in f)
+        ok = (os.path.dirname(os.path.abspath(run_dir)) == tmp
+              and cfg.get("name") == name
+              and len(cfg.get("obstacles", ())) == 2
+              and states == cfg.get("numSteps") == 2000
+              and 0.0 <= out["feasible_frac"] <= 1.0
+              and all(math.isfinite(v) for v in out["final_state"]))
+    print(f"[cli] python -m bayesian_cbf_tpu_torch.cli {name}: exit 0 in "
+          f"{wall:.3f} s; printed {out}; config.json keys {sorted(cfg)}, "
+          f"{states} states in metrics.jsonl", flush=True)
+    _require(ok, f"cli: run directory or output malformed ({out}, {cfg})")
+
+
+def phase_serving(dev, card):
+    """The serving tick without and with continuous updates, a checkpoint
+    round trip, the console entry point in a subprocess, and the car's
+    ground-truth QP episode and dynamics learning.  Returns the launch
+    counts per run."""
+    from bayesian_cbf_tpu_torch.experiments import car as tx
+    none = dict.fromkeys(bt.counters(), 0)
+    launches = {}
+    launches["serving"], _ = _serving_run(dev, card, False)
+    launches["serving continuous"], ctl = _serving_run(dev, card, True)
+    _checkpoint_round_trip(dev, ctl)
+    _cli_subprocess()
+
+    (cbcs, X, U, pres), wall, counts, _ = _counted(
+        lambda: tx.run_car_control_ground_truth(device=dev))
+    T = X.shape[0]
+    clear = tx.min_car_clearance(cbcs, X)
+    goal = float(torch.linalg.vector_norm(X[-1, 3:5]))
+    feasible = float((pres < 5e-3).float().mean())
+    print(f"[car ground truth] B=1 T={T} dt=0.01: wall {wall:.3f} s "
+          f"({wall * 1e3 / T:.3f} ms per step) on {card}; launches ipm "
+          f"{counts['ipm']} (schedule {T}); min clearance per obstacle "
+          f"{[round(float(c), 4) for c in clear]}, final distance to the "
+          f"goal {goal:.4f}, feasible fraction {feasible:.4f}", flush=True)
+    _require(counts == {**none, "ipm": T},
+             f"car ground truth: launch counts {counts}")
+    _require(bool(torch.isfinite(X).all()) and float(clear.min()) > -0.05,
+             f"car ground truth: min clearance {clear.tolist()}")
+    launches["car ground truth"] = counts
+
+    res, wall, counts, rungs = _counted(
+        lambda: tx.car_learn_dynamics(device=dev))
+    rmse = res[-1]
+    want = {**none, "kinv_logdet": 40, "chol_linv": 3}
+    print(f"[car learn dynamics] K=100, 40 Adam iterations: wall "
+          f"{wall:.3f} s on {card}; launches {counts}; accepted rungs "
+          f"{rungs}; held-out xdot RMSE {rmse:.6f}", flush=True)
+    _require(counts == want, f"car learn: launch counts {counts} != {want}")
+    _require(math.isfinite(rmse) and rmse < 5.0, f"car learn: RMSE {rmse}")
+    launches["car learn"] = counts
+    _car_learn_same_inputs(dev, card)
+    return launches
+
+
+def _car_learn_same_inputs(dev, card):
+    """`car_learn_dynamics` on one set of inputs (the rollout's uniforms
+    and the initial weights from a CPU generator) four ways: on the card
+    through kernels 1 and 2, on the card through their plain versions,
+    and plain on the CPU in f32 and f64.  The card's generator makes
+    other inputs than the CPU's, so only such a run tells the kernels'
+    part in the RMSE from the data's."""
+    from bayesian_cbf_tpu_torch.experiments import car as tx
+    from bayesian_cbf_tpu_torch.models.dynamics import _map
+    from bayesian_cbf_tpu_torch.models.mvgp import make_mvgp_rank1
+    from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
+    from bayesian_cbf_tpu_torch.ops import cholinv
+    gen = torch.Generator().manual_seed(0)
+    draws = torch.rand((500, 2), generator=gen, dtype=torch.float64)
+    p0 = make_mvgp_rank1(6, 2).init_params(1, gen, "cpu", torch.float64)
+
+    def learn(device, dtype, iters):
+        _, params, _, _, rmse = tx.car_learn_dynamics(
+            training_iter=iters, device=device, dtype=dtype,
+            draws=draws.to(dtype),
+            params=_map(lambda a: a.to(device=device, dtype=dtype), p0))
+        return _map(lambda a: a.double().cpu(), params), rmse
+
+    def dist(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    fns = bt.counters()
+    kernel_fns = cholinv._kinv_logdet_kernel, cholinv.chol_linv
+    out = {}
+    for iters in (1, 40):
+        res = {"kernels": learn(dev, torch.float32, iters)}
+        before = {k: fn.launches for k, fn in fns.items()}
+        cholinv._kinv_logdet_kernel = ck.kinv_logdet_plain
+        cholinv.chol_linv = ck.chol_linv_plain
+        try:
+            res["plain"] = learn(dev, torch.float32, iters)
+        finally:
+            cholinv._kinv_logdet_kernel, cholinv.chol_linv = kernel_fns
+        _require(before == {k: fn.launches for k, fn in fns.items()},
+                 "car learn: the plain run launched a kernel")
+        res["cpu f32"] = learn("cpu", torch.float32, iters)
+        res["cpu f64"] = learn("cpu", torch.float64, iters)
+        ref = res["cpu f64"][0]
+        print(f"[car learn, same inputs] K=100, {iters} Adam iterations, on "
+              f"{card}: " + "; ".join(
+                  f"{k} RMSE {r:.6f}, max |params - f64's| "
+                  f"{dist(p, ref):.3e}" for k, (p, r) in res.items())
+              + f"; max |params kernels - plain on the card| "
+              f"{dist(res['kernels'][0], res['plain'][0]):.3e}", flush=True)
+        out[iters] = res
+    # Adam's first step moves each weight by up to lr = 0.1 in the sign of
+    # its gradient, so a kernel 1 or 2 that changes a gradient moves the
+    # weights by more than 1e-4; after 40 steps the f32 noise on the
+    # trajectory Gram still leaves the RMSE within 1% of plain's
+    step = dist(out[1]["kernels"][0], out[1]["plain"][0])
+    (_, r_k), (_, r_p) = out[40]["kernels"], out[40]["plain"]
+    _require(step < 1e-4, f"car learn: one Adam step off plain's by {step}")
+    _require(abs(r_k - r_p) < 1e-2 * r_p,
+             f"car learn: RMSE {r_k} through the kernels, {r_p} plain")
+    _require(all(math.isfinite(r) for res in out.values()
+                 for _, r in res.values()), f"car learn, same inputs: {out}")
+
+
 def main():
     dev, card = phase_device()
     phase_build()
@@ -1765,6 +2026,7 @@ def main():
     px0s = bt.pendulum_x0s(dev)
     chol = _check_chol_kernels(dev)
     chol_b1 = _check_chol_kernels_b1(dev)
+    chol_b1_k100 = _check_chol_kernels_b1(dev, n=100)
     cones = lambda B, seed, **kw: [
         torch.tensor(a, dtype=torch.float32, device=dev)
         for a in _random_cones(B, seed, **kw)]
@@ -1775,6 +2037,7 @@ def main():
     main_dims, pend_dims = (4, 4, 4, 4), (3, 3, 1)
     gt_dims, mc_dims = (3, 1, 1, 1, 1), (4, 1, 1, 1, 1, 1)
     free_dims, collide_dims = (4, 4), (4, 1, 1, 1)
+    car_dims = (4, 1, 1, 1, 1)
     ipm = _check_ipm_kernel(dev, "(4, 4, 4)", cones(256, 0),
                             list(_step0_cones(dev, x0s, 1,
                                               want_dims=main_dims)),
@@ -1796,6 +2059,11 @@ def main():
     ipm_free = _check_ipm_kernel(dev, "(4, 2, 4)", cones(256, 17, dims=(4, 4)),
                                  free_cones, cones(1003, 18, dims=(4, 4)),
                                  free_dims)
+    car_cones = _car_cones(dev)
+    ipm_car = _check_ipm_kernel(dev, "(3, 5, 4)",
+                                cones(256, 19, nx=3, dims=car_dims),
+                                car_cones, cones(1003, 20, nx=3,
+                                                 dims=car_dims), car_dims)
     from bayesian_cbf_tpu_torch.experiments import unicycle as tu
     collide = tu.make_ackermann_tracking_sim(**tu.EXPERIMENTS["mean_cbf"],
                                              device=dev)
@@ -1805,8 +2073,11 @@ def main():
     ipm_gt["b1"] = _check_ipm_b1(dev, "(3, 5, 3)", gt_cones, gt_dims)
     ipm_mc["b1"] = _check_ipm_b1(dev, "(4, 6, 4)", mc_cones, mc_dims)
     ipm_free["b1"] = _check_ipm_b1(dev, "(4, 2, 4)", free_cones, free_dims)
+    ipm_car["b1"] = _check_ipm_b1(dev, "(3, 5, 4)", car_cones, car_dims)
     chol["kinv_logdet"]["b1"] = chol_b1["kinv_logdet"]
     chol["chol_linv"]["b1"] = chol_b1["chol_linv"]
+    chol["kinv_logdet"]["b1_k100"] = chol_b1_k100["kinv_logdet"]
+    chol["chol_linv"]["b1_k100"] = chol_b1_k100["chol_linv"]
     gram = _check_gram_kernel(dev)
     sweep = _check_sweep_kernel(dev)
     dinv = _check_chol_dinv_kernel(dev)
@@ -1828,6 +2099,7 @@ def main():
     profile_stats = phase_pendulum_profile(dev, px0s)
     runs.update(phase_outcomes(dev, card))
     runs.update(phase_deterministic(dev, card))
+    runs.update(phase_serving(dev, card))
 
     def entry(name, source, replaces, run, stats, counter=None):
         counter = counter or name
@@ -1852,6 +2124,8 @@ def main():
               "move_to_pose_clf_cartesian", ipm_mc, counter="ipm"),
         entry("ipm (4, 2, 4)", "ipm.cu", "pallas_ipm.py:48", "no obstacles",
               ipm_free, counter="ipm"),
+        entry("ipm (3, 5, 4)", "ipm_exact.cu", "pallas_ipm.py:48",
+              "car ground truth", ipm_car, counter="ipm"),
         entry("chol_dinv", "chol_blocked.cu", "pallas_chol.py:105", "a", dinv),
         entry("sweep", "sweep.cu", "pallas_sweep.py:203", "b", sweep),
         entry("gram", "gram.cu", "gram.py:54", "c", gram),

@@ -4,19 +4,27 @@ one NVIDIA card: the instantiations the two builds share must give the
 same bits.
 
     python3 probe_ipm.py --earlier-csrc DIR
+    python3 probe_ipm.py --contraction
 
-DIR holds ipm.cu as it was before the group width became a template
-parameter (four lanes a problem, instantiations (4, 4, 4) and (4, 3, 3);
-the same entry point ipm_launch).  It is built beside this checkout's
-kernel into build/kernels/ and loaded with ctypes.  For each shared
-shape, both builds solve the same problems and their x, S and Z are held
-equal bit for bit (torch.equal on the int32 views): random cones of the
-shape at B = 256 and 1003, the paths' real step-0 cones at B = 256 (the
-flagship's, the mean CBF's half-spaces and the pendulum's), each cold (25
+DIR holds an earlier ipm.cu with the same entry points (ipm_launch,
+ipm_group_width).  It is built beside this checkout's kernel into
+build/kernels/ and loaded with ctypes.  For each shape both instantiate,
+both builds solve the same problems and their x, S and Z are held equal
+bit for bit (torch.equal on the int32 views): random cones of the shape
+at B = 256 and 1003, the paths' real cones at B = 256 (the flagship's,
+the mean CBF's half-spaces, the pendulum's and the obstacle-free step-0
+cones, the ground-truth and mean-CLF QPs' cones), each cold (25
 iterations) and warm (15, from the plain version's cold solution shifted
 into the interior, on data moved by 1e-3), and the first 32 real problems
 launched one at a time.  Then both kernels are timed in turns (earlier,
 this, this, earlier; CUDA events, 50 launches each) on the real cones.
+
+--contraction builds csrc/ipm_exact.cu (the car QP's shape, built with
+-fmad=false) a second time with contracted multiply-adds and prints, for
+five sets of 256 car-QP problems about the car's start, each build's
+median distance from an f64 solve (25 cold iterations) over the plain
+f32 version's: the measurement behind building that shape without
+contraction.
 """
 import argparse
 import ctypes
@@ -45,6 +53,18 @@ def build_earlier(csrc: Path):
     return lib
 
 
+def _shapes_of(lib):
+    """The (nx, C, d) of the paths that `lib` instantiates (before the
+    group width became a template parameter: (4, 4, 4) and (4, 3, 3))."""
+    paths = ((4, 4, 4), (4, 3, 3), (3, 5, 3), (4, 6, 4), (4, 2, 4),
+             (3, 5, 4))
+    if not hasattr(lib, "ipm_group_width"):
+        return paths[:2]
+    lib.ipm_group_width.argtypes = [_INT] * 3
+    lib.ipm_group_width.restype = _INT
+    return tuple(s for s in paths if lib.ipm_group_width(*s))
+
+
 def earlier_route(lib):
     """The earlier kernel as a function of `ipm_kernel.ipm`'s arguments."""
     from bayesian_cbf_tpu_torch.ops import _build
@@ -61,6 +81,7 @@ def earlier_route(lib):
                             torch.cuda.current_stream(c.device).cuda_stream)
         _build.check(rc, "ipm_launch (earlier)")
         return x, S, Z
+    solve.shared = _shapes_of(lib)
     return solve
 
 
@@ -104,6 +125,9 @@ def bits(dev, earlier):
         "(4, 3, 3) pendulum step 0": list(_pendulum_step0_cones(
             dev, bt.pendulum_x0s(dev), want_dims=(3, 3, 1))),
     }
+    shared = earlier.shared
+    cases.update({k: v for k, v in _real_cases(dev).items()
+                  if tuple(v[1].shape[3:4] + v[1].shape[1:3]) in shared})
     for name, prob in cases.items():
         for args, start, iters in _starts(prob):
             same = _same_bits(ik.ipm(*args, *start, iters, 1e-10),
@@ -123,6 +147,64 @@ def bits(dev, earlier):
     return cases
 
 
+def _real_cases(dev):
+    """Every earlier shape's real cones, as in chip_smoke.py."""
+    import chip_smoke as cs
+    x0s = bt.unicycle_x0s(dev)
+    cones = lambda B, seed, **kw: [
+        torch.tensor(a, dtype=torch.float32, device=dev)
+        for a in _random_cones(B, seed, **kw)]
+    return {
+        "(3, 5, 3) random B=256": cones(256, 13, nx=3,
+                                        dims=(3, 1, 1, 1, 1)),
+        "(3, 5, 3) ground truth": cs._ground_truth_cones(dev),
+        "(4, 6, 4) random B=256": cones(256, 15, dims=(4, 1, 1, 1, 1, 1)),
+        "(4, 6, 4) mean CLF": cs._mean_clf_cones(dev),
+        "(4, 2, 4) random B=256": cones(256, 17, dims=(4, 4)),
+        "(4, 2, 4) no obstacles step 0": list(_step0_cones(
+            dev, x0s, 1, cs._no_obstacle_sim(dev), want_dims=(4, 4))),
+    }
+
+
+def contraction(dev, card):
+    """ipm_exact.cu with and without contraction against plain, by their
+    median distance from f64 on the car QP's cones."""
+    import subprocess
+    import chip_smoke as cs
+    from bayesian_cbf_tpu_torch.ops import _build
+    from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
+    _build.build_all(("ipm_exact",))
+    out = _build.BUILD_DIR / "ipm_exact_contracted.so"
+    proc = subprocess.run(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
+         str(_build.CSRC / "ipm_exact.cu")], capture_output=True, text=True)
+    _require(proc.returncode == 0, f"nvcc failed:\n{proc.stdout}")
+    lib = ctypes.CDLL(str(out))
+    lib.ipm_launch.argtypes = [_VP] * 9 + [_INT] * 5 + [_F32, _VP]
+    lib.ipm_launch.restype = _INT
+    contracted = earlier_route(lib)
+    rel = lambda a, b: (a - b).abs() / (1.0 + b.abs())
+    for seed, scale in ((21, 0.1), (22, 0.1), (23, 0.1), (24, 0.1),
+                        (21, 0.05)):
+        prob = cs._car_cones(dev, seed=seed, scale=scale)
+        cold = cs._ipm_cold(dev, prob)
+        exact = ik.ipm_plain(*(a.double() for a in prob + cold), 25, 1e-10)
+        conv = ik.score_padded(*(a.double() for a in prob), *exact) < 1e-6
+        med = {}
+        for who, fn in (("plain", ik.ipm_plain), ("ipm_exact", ik.ipm),
+                        ("contracted", contracted)):
+            got = fn(*prob, *cold, 25, 1e-10)
+            torch.cuda.synchronize()
+            med[who] = float(rel(got[0].double(), exact[0]).amax(-1)[conv]
+                             .median())
+        print(f"[contraction] car cones, seed {seed}, 256 states + {scale} "
+              f"N(0, 1): median distance from f64 over plain's "
+              f"({med['plain']:.4e}): -fmad=false build "
+              f"{med['ipm_exact'] / med['plain']:.3f}, contracted build "
+              f"{med['contracted'] / med['plain']:.3f} on {card}",
+              flush=True)
+
+
 def times(card, earlier, cases):
     from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
     for name in ("(4, 4, 4) flagship step 0", "(4, 3, 3) pendulum step 0"):
@@ -138,9 +220,14 @@ def times(card, earlier, cases):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--earlier-csrc", type=Path, required=True)
+    ap.add_argument("--earlier-csrc", type=Path)
+    ap.add_argument("--contraction", action="store_true")
     args = ap.parse_args()
     dev, card = phase_device()
+    if args.contraction:
+        contraction(dev, card)
+    if args.earlier_csrc is None:
+        return
     from bayesian_cbf_tpu_torch.ops import _build
     _build.build_all(("ipm",))
     earlier = earlier_route(build_earlier(args.earlier_csrc))

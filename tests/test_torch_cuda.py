@@ -756,9 +756,11 @@ def test_ipm_rejects_what_the_kernel_cannot_read(cuda):
                  for a in _mixed_cones(4, 0, nx=5)), 5, 1e-10)
 
 
-# the instantiations added with the group width: (3, 5, 3) and (4, 6, 4) at
-# eight lanes a problem (four problems a block), (4, 2, 4) at four
-WIDE_SHAPES = [(3, (3, 1, 1, 1, 1)), (4, (4, 1, 1, 1, 1, 1)), (4, (4, 4))]
+# the instantiations added with the group width: (3, 5, 3), (4, 6, 4) and
+# the car QP's (3, 5, 4) at eight lanes a problem (four problems a block),
+# (4, 2, 4) at four
+WIDE_SHAPES = [(3, (3, 1, 1, 1, 1)), (4, (4, 1, 1, 1, 1, 1)), (4, (4, 4)),
+               (3, (4, 1, 1, 1, 1))]
 
 
 @pytest.mark.cuda
@@ -814,8 +816,8 @@ def test_ipm_raises_on_an_uninstantiated_shape(cuda):
     assert ik.ipm.launches == before
     lib = _build.load("ipm")
     shapes = ik.instantiated_shapes()
-    assert {(4, 4, 4), (4, 3, 3), (3, 5, 3), (4, 6, 4), (4, 2, 4)} \
-        <= set(shapes)
+    assert {(4, 4, 4), (4, 3, 3), (3, 5, 3), (4, 6, 4), (4, 2, 4),
+            (3, 5, 4)} <= set(shapes)
     for nx, C, d in shapes:
         assert ik.group_width(nx, C, d) in (4, 8)
         assert C <= ik.group_width(nx, C, d)
@@ -824,3 +826,115 @@ def test_ipm_raises_on_an_uninstantiated_shape(cuda):
     assert lib.ipm_launch(*(a.data_ptr() for a in args + out), 4, 4, 9, 4,
                           5, 1e-10,
                           torch.cuda.current_stream(cuda).cuda_stream) != 0
+
+
+def _car_cones(cuda, B, seed):
+    """The car's ground-truth QP at B states about its start, + 0.3 N(0, 1)
+    in position and 0.1 N(0, 1) elsewhere, padded to (3, 5, 4), with the
+    cold start."""
+    from bayesian_cbf_tpu_torch.experiments import car as tx
+    from bayesian_cbf_tpu_torch.solvers.socp import _pad_cones
+    rng = np.random.default_rng(seed)
+    x = np.asarray(tx.CAR_START)[None] + rng.normal(size=(B, 6)) * np.array(
+        [0.1, 0.1, 0.1, 0.3, 0.3, 0.1])
+    x = torch.tensor(x, dtype=torch.float32, device=cuda)
+    cobj, G, h, dims = tx.car_ground_truth_socp(
+        x, tx.car_obstacles(device=cuda), torch.zeros(2, device=cuda))
+    Gp, hp = _pad_cones(G, h, dims)
+    e = torch.zeros_like(hp)
+    e[..., 0] = 1.0
+    return [cobj.expand(B, -1).contiguous(), Gp, hp,
+            torch.zeros_like(cobj.expand(B, -1)).contiguous(), e, e.clone()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 256, 1003])
+def test_ipm_car_shape_on_car_cones(cuda, B):
+    """(3, 5, 4) on the car QP's real cones, cold (25 iterations) and
+    warm-started from plain's solution shifted inside its cones on data
+    moved by 1e-3 (15 iterations), each against an f64 solve of the same
+    iterations: at least as many converged problems as plain f32 within
+    5%, and on the problems all three converge, the kernel's relative
+    cost error's median and 90th percentile no more than twice plain
+    f32's (plain f32 itself is up to 2.4e-3 off the f64 cost there on the
+    CPU, so the two f32 costs are not held to each other); one problem
+    alone gives the bits of the batched launch."""
+    from bayesian_cbf_tpu_torch.solvers.socp import _interior_shift
+    args = _car_cones(cuda, B, 7)
+    assert tuple(args[1].shape) == (B, 5, 4, 3)
+    cost = lambda x: (args[0].double() * x.double()).sum(-1)
+    q = lambda v: torch.quantile(v, torch.tensor([0.5, 0.9], device=cuda,
+                                                 dtype=v.dtype))
+    start = args[3:]
+    for iters in (25, 15):
+        if iters == 15:
+            x, S, Z = ik.ipm_plain(*args[:3], *args[3:], 25, 1e-10)
+            start = [x, _interior_shift(S), _interior_shift(Z)]
+            args = args[:2] + [args[2] + 1e-3 * args[4]] + args[3:]
+        got = ik.ipm(*args[:3], *start, iters, 1e-10)
+        want = ik.ipm_plain(*args[:3], *start, iters, 1e-10)
+        exact = ik.ipm_plain(*(a.double() for a in args[:3] + start), iters,
+                             1e-10)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+        sg = ik.score_padded(*args[:3], *got)
+        sw = ik.score_padded(*args[:3], *want)
+        se = ik.score_padded(*(a.double() for a in args[:3]), *exact)
+        assert int((sg < 1e-3).sum()) >= int((sw < 1e-3).sum()) - B // 20
+        all3 = (sg < 1e-3) & (sw < 1e-3) & (se < 1e-6)
+        assert int(all3.sum()) >= (B + 1) // 2
+        ref = cost(exact[0])
+        err = lambda x: ((cost(x) - ref).abs() / (1.0 + ref.abs()))[all3]
+        ek, ep = q(err(got[0])), q(err(want[0]))
+        assert bool((ek <= 2.0 * ep + 1e-6).all()), (iters, ek, ep)
+        if B > 1:
+            one = ik.ipm(*(a[:1].contiguous() for a in args[:3] + start),
+                         iters, 1e-10)
+            for g, w in zip(one, got):
+                assert torch.equal(g, w[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("continuous", [False, True])
+def test_serving_ticks_on_the_card_follow_the_cpu(cuda, continuous):
+    """12 serving ticks of a small unicycle configuration (K = 8, a refit
+    at t = 8) on the card against the same ticks on the CPU in f32, from
+    the same initial weights and draws: every control within 5e-2 relative
+    (the IPM's f32 floor, amplified by the refit), the same reservoir
+    counts, and the launches the schedule implies: one IPM a tick, the
+    refit's Adam iterations through kernel 1, three factorizations through
+    kernel 2 per cache refresh (the refit's and, with continuous updates,
+    each accepted replacement once the reservoir is full)."""
+    from bayesian_cbf_tpu_torch.deploy import CompiledController
+    from bayesian_cbf_tpu_torch.experiments import unicycle as tu
+    from bayesian_cbf_tpu_torch.models.dynamics import _map
+    kw = dict(numSteps=24, dt=0.01, max_train=8, training_iter=5,
+              train_every_n_steps=8)
+    draws = [0, 0, 1, 2, 3, 4, 5, 6, 7, 3, 9, 5]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sim = tu.make_ackermann_tracking_sim(**kw, device=dev)
+        ctl = CompiledController(sim, tu.STATE_START,
+                                 torch.Generator(device=dev).manual_seed(0),
+                                 continuous_updates=continuous, device=dev)
+        if dev == "cuda":
+            ctl.restore(_map(lambda a: a.to(cuda), runs["cpu"][2]))
+        start = ctl.state()
+        for fn in (ik.ipm, ck.kinv_logdet, ck.chol_linv):
+            fn.launches = 0
+        refreshes = 0
+        U = []
+        for j in draws:
+            before = int(ctl.state()[1].count_res)
+            U.append(ctl.tick(draw=j)[0])
+            after = int(ctl.state()[1].count_res)
+            refreshes += int(continuous and after > before
+                             and before >= kw["max_train"])
+        counts = (ik.ipm.launches, ck.kinv_logdet.launches,
+                  ck.chol_linv.launches)
+        runs[dev] = (np.array(U), int(ctl.state()[1].count_res), start,
+                     counts, refreshes)
+    (Uc, nc, _, cc, rc), (Ug, ng, _, cg, rg) = runs["cpu"], runs["cuda"]
+    assert np.all(np.isfinite(Ug)) and ng == nc
+    assert np.abs(Ug - Uc).max() / (1.0 + np.abs(Uc).max()) < 5e-2
+    assert cg == (len(draws), kw["training_iter"], 3 * (1 + rg))
