@@ -6,7 +6,10 @@ deterministic baseline on a known model, the mean-CLF/CBF QP
 With the posterior moments vec F(x) ~ N(vec FT^T, Bk kron A), a linear
 functional w of the dynamics has
     mean  w^T F u_hom = (w^T FT) u_hom,   var = (u_hom^T Bk u_hom)(w^T A w),
-so one posterior evaluation per step yields every cone in closed form.
+so one posterior evaluation per step yields every cone in closed form
+(`bayes_clf_control`).  `bayes_clf_control_gp` builds the same cones
+through the GP expression path instead: the CLC and CBCs as GPs of the
+model's Fu, their terms extracted by differentiating in u.
 
   variables x = [u (m), relax, t]
   minimize  t
@@ -22,7 +25,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..safety.cbc import cbc1_safety_factor
+from ..gp.algebra import DeterministicGP
+from ..safety.cbc import (cbc1_safety_factor, cbc2_quadratic_terms,
+                          cbc_to_socp_cone)
 from ..solvers.socp import solve_socp
 from ..utils.linalg import psd_chol_small_ladder
 
@@ -219,6 +224,94 @@ def bayes_clf_control(cfg: BayesCLFControllerConfig, clf, cbfs, planner,
     if warm is None:
         return u_opt, info
     return u_opt, info, (sol.x, sol.s, sol.z)
+
+
+def _clc_gp(cfg: BayesCLFControllerConfig, clf, fu_gp_fn, x_dim,
+            state_goal, dplan, u):
+    """The CLC as a GP at one state: grad_V^T (F u) + grad_goal_V^T
+    dot_plan + gamma V, for the goal state_goal (n,) and its rate dplan
+    (n,)."""
+    clfgp = DeterministicGP(
+        lambda x: (cfg.clf_gamma * clf.clf(x, state_goal)).reshape(1),
+        dim=1, name="gammaV")
+    gclf = DeterministicGP(lambda x: clf.grad_clf(x, state_goal),
+                           dim=x_dim, name="gradV")
+    gclf_goal = DeterministicGP(lambda x: clf.grad_clf_wrt_goal(x, state_goal),
+                                dim=x_dim, name="gradV_goal")
+    dplan_gp = DeterministicGP(lambda x: dplan, dim=x_dim, name="dot_plan")
+    return gclf.t() @ fu_gp_fn(u) + gclf_goal.t() @ dplan_gp + clfgp
+
+
+def _cbc_gp(cbf, gamma, fu_gp_fn, x_dim, u):
+    """The relative-degree-1 CBC as a GP at one state:
+    grad_h^T (F u) + gamma h."""
+    hgp = DeterministicGP(lambda x: (gamma * cbf.cbf(x)).reshape(1), dim=1,
+                          name="gamma_h")
+    ghgp = DeterministicGP(cbf.grad_cbf, dim=x_dim, name="grad_h")
+    return ghgp.t() @ fu_gp_fn(u) + hgp
+
+
+def bayes_clf_control_gp(cfg: BayesCLFControllerConfig, clf, cbfs, planner,
+                         fu_gp_fn, state, x, t):
+    """One control step for a batch of episodes through the GP expression
+    path: the CLC and CBC cones of `bayes_clf_control`, each built as a GP
+    of the model's Fu and its terms extracted by differentiating in u at
+    u0 = 0.5 (`cbc2_quadratic_terms`), vectorized over the episodes with
+    `torch.func.vmap`; solved cold at cfg.socp_iters iterations (no warm
+    start, no mean-only half-spaces).
+
+    fu_gp_fn(state_b, u): the Fu GP of one episode's learner state at
+    control u (m,), e.g. `LearnedShiftInvariantDynamics.fu_func_gp`;
+    state: the learner state (B, ...), or None where fu_gp_fn reads none.
+    x (B, n); t an int or a (B,) tensor of steps.  Returns (u (B, m),
+    ControlInfo) with the CLC's and CBCs' mean and variance at u0."""
+    m = cfg.u_dim
+    dtype, device = x.dtype, x.device
+    batch, n = x.shape
+    rho, _, uref, cobj, G_obj, h_obj = _constants(cfg, len(cbfs), dtype,
+                                                  device)
+    goal = planner.plan(t).expand(batch, n)
+    dplan = planner.dot_plan(t).expand(batch, n)
+    u0 = torch.full((m,), 0.5, dtype=dtype, device=device)
+
+    def one(x1, goal1, dplan1, st):
+        fu = lambda u: fu_gp_fn(st, u)
+        clc = cbc2_quadratic_terms(
+            lambda u: _clc_gp(cfg, clf, fu, n, goal1, dplan1, u) * (-1.0),
+            x1, u0)
+        cbcs = [cbc2_quadratic_terms(
+            lambda u, cbf=cbf, gamma=gamma: _cbc_gp(cbf, gamma, fu, n, u),
+            x1, u0) for cbf, gamma in zip(cbfs, cfg.cbf_gammas)]
+        return clc, cbcs
+
+    clc, cbcs = torch.func.vmap(
+        one, in_dims=(0, 0, 0, None if state is None else 0))(
+            x, goal, dplan, state)
+    G_rows = [G_obj.expand(batch, -1, -1)]
+    h_rows = [h_obj.expand(batch, -1)]
+    dims = [m + 2]
+    for i, ((bfe, e), (V, bfv, v), _, _) in enumerate([clc] + cbcs):
+        # the CLC (first) takes the relax slack
+        A, b, bfc, d = cbc_to_socp_cone(bfe, e, V, bfv, v, extravars=2,
+                                        relax_col=0 if i == 0 else -1)
+        G_rows.append(torch.cat([-bfc[:, None], -rho * A], 1))
+        h_rows.append(torch.cat([d[:, None], rho * b], 1))
+        dims.append(m + 2)
+    sol = solve_socp(cobj, torch.cat(G_rows, 1), torch.cat(h_rows, 1),
+                     tuple(dims), iters=cfg.socp_iters)
+    feas_tol = (cfg.feas_tol if dtype == torch.float64
+                else max(cfg.feas_tol, 5e-3))
+    feasible = (sol.pres < feas_tol) & torch.isfinite(sol.x).all(-1)
+    u_opt = torch.where(feasible[:, None], sol.x[:, :m],
+                        uref.expand(batch, m))
+    stack = lambda i: (torch.stack([c[i] for c in cbcs], 1) if cbcs
+                       else x.new_zeros((batch, 0)))
+    info = ControlInfo(
+        rho=torch.full((batch,), rho, dtype=dtype, device=device),
+        relax=sol.x[:, m], pcost=sol.pcost, pres=sol.pres, dres=sol.dres,
+        feasible=feasible, clc_mean=clc[2], clc_var=clc[3],
+        cbc_means=stack(2), cbc_vars=stack(3))
+    return u_opt, info
 
 
 class MeanCLFControllerConfig(NamedTuple):

@@ -26,6 +26,11 @@ def _polar_parts(state, state_goal):
     return dx, dy, rho, alpha, beta
 
 
+def _position_gap(state, state_goal):
+    return torch.linalg.vector_norm(state_goal[..., :2] - state[..., :2],
+                                    dim=-1)
+
+
 def cartesian2polar(state, state_goal):
     """(x, y, theta), goal -> (rho, alpha, beta), (..., 3)."""
     _, _, rho, alpha, beta = _polar_parts(state, state_goal)
@@ -44,6 +49,18 @@ def polar2cartesian(polar, state_goal):
 class CLFCartesian(NamedTuple):
     """V(x; x_g) = 1/2 Kp0 rho^2 + Kp1 (1 - cos alpha) + Kp2 (1 - cos beta)."""
     Kp: tuple = (0.9, 1.5, 0.0)
+
+    def clf_terms(self, state, state_goal):
+        """The three terms of V, (..., 3)."""
+        _, _, rho, alpha, beta = _polar_parts(state, state_goal)
+        K0, K1, K2 = self.Kp
+        return torch.stack([0.5 * K0 * rho ** 2,
+                            K1 * (1.0 - torch.cos(alpha)),
+                            K2 * (1.0 - torch.cos(beta))], -1)
+
+    def isconverged(self, state, state_goal, tol=1e-3):
+        """Within tol of the goal's position, (...,) bool."""
+        return _position_gap(state, state_goal) < tol
 
     def value_and_grads(self, state, state_goal):
         """(V, dV/d state, dV/d goal), each over the leading axes."""
@@ -76,6 +93,20 @@ class CLFPolar(NamedTuple):
     + Kp3 (1 - cos(beta - alpha)) on polar states (rho, alpha, beta); the
     goal enters only through the polar coordinates."""
     Kp: tuple = (0.6, 1.5, 4.0, 0.0)
+
+    def clf_terms(self, polar, state_goal):
+        """The four terms of V, (..., 4)."""
+        rho, alpha, beta = polar[..., 0], polar[..., 1], polar[..., 2]
+        K0, K1, K2, K3 = self.Kp
+        return torch.stack([0.5 * K0 * rho ** 2,
+                            K1 * (1.0 - torch.cos(alpha)),
+                            K2 * (1.0 - torch.cos(beta)),
+                            K3 * (1.0 - torch.cos(beta - alpha))], -1)
+
+    def isconverged(self, state, state_goal, tol=1e-3):
+        """Within tol of the goal's position, (...,) bool (the first two
+        coordinates of both, as the JAX package reads them)."""
+        return _position_gap(state, state_goal) < tol
 
     def value_and_grads(self, polar, state_goal):
         """(V, dV/d polar, dV/d goal = 0), each over the leading axes."""
@@ -131,13 +162,25 @@ class ObstacleCBF(NamedTuple):
         return self.value_and_grad(state)[1]
 
 
+def _R90(x):
+    return torch.tensor([[0.0, -1.0], [1.0, 0.0]], dtype=x.dtype,
+                        device=x.device)
+
+
 def obstacles_at_mid_from_start_and_goal(x, x_g, term_weights=(0.5, 0.5)):
     """Two obstacles flanking the midpoint of the start -> goal segment.
     x, x_g are (3,) tensors; the centers keep their dtype and device."""
     mid = (x[:2] + x_g[:2]) / 2.0
-    R90 = torch.tensor([[0.0, -1.0], [1.0, 0.0]], dtype=x.dtype,
-                       device=x.device)
-    off = R90 @ (x[:2] - x_g[:2]) / 3.0
+    off = _R90(x) @ (x[:2] - x_g[:2]) / 3.0
     r = float(torch.linalg.vector_norm(x[:2] - x_g[:2]) / 4.0)
     return [ObstacleCBF(mid + off, r, term_weights),
             ObstacleCBF(mid - off, r, term_weights)]
+
+
+def single_obstacle_at_mid_from_start_and_goal(x, x_g,
+                                               term_weights=(0.5, 0.5)):
+    """One obstacle beside the midpoint of the start -> goal segment
+    (a tenth of the segment off it, radius an eighth of it)."""
+    mid = (x[:2] + x_g[:2]) / 2.0 + _R90(x) @ (x[:2] - x_g[:2]) / 10.0
+    r = float(torch.linalg.vector_norm(x[:2] - x_g[:2]) / 8.0)
+    return [ObstacleCBF(mid, r, term_weights)]

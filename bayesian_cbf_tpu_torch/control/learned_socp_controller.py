@@ -8,7 +8,10 @@ pendulum stack), batched over episodes.
         s >= 0
 
 The CBC2 cones come in closed form from one posterior moment-derivative
-evaluation per step; each is scaled by 1 / max(1, max |entry|) (same
+evaluation per step, or with `closed_form=False` through the GP
+expression path (`safety/cbc.cbc2_gp_terms`: the CBC2 built as a GP of
+each episode's learned (f, Fu) pair, its terms extracted by
+differentiating in u); each is scaled by 1 / max(1, max |entry|) (same
 feasible set, better conditioned for the f32 IPM).  The slack s with its
 exact penalty keeps every problem feasible: a step is `certified` when
 s is ~0.
@@ -17,12 +20,12 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..safety.cbc import (cbc2_closed_form_terms, cbc2_safety_factor,
-                          cbc_to_socp_cone)
+from ..safety.cbc import (cbc2_closed_form_terms, cbc2_gp_terms,
+                          cbc2_safety_factor, cbc_to_socp_cone)
 from ..solvers.socp import solve_socp
 
 
@@ -35,6 +38,9 @@ class LearnedSOCPControllerConfig(NamedTuple):
     k_alpha: Tuple[float, float] = (1.0, 3.0)
     socp_iters: int = 25
     cbc_relax_weight: float = 100.0
+    # CBC2 terms from the moment derivatives (True) or through the GP
+    # expression path (False, `cbc2_gp_terms`)
+    closed_form: bool = True
 
     @property
     def safety_factor(self) -> float:
@@ -74,11 +80,17 @@ def _constants(cfg: LearnedSOCPControllerConfig, dtype, device):
 
 
 def learned_socp_cones(cfg: LearnedSOCPControllerConfig, cbfs, mder,
-                       u_ref, x):
+                       u_ref, x, pair_fn: Optional[Callable] = None,
+                       state=None):
     """The batch of step SOCPs: (cobj (nvar,), G (B, M, nvar), h (B, M),
     dims, CBC2 means (B, n_cbfs), variances (B, n_cbfs)) at u0 = 0.5.
     cbfs: barriers with cbf / grad_cbf / hess_cbf; mder: the step's
-    moment derivatives; u_ref (B, m): the reference control."""
+    moment derivatives (read when cfg.closed_form); u_ref (B, m): the
+    reference control.  Without cfg.closed_form the CBC2 terms come from
+    `cbc2_gp_terms` with pair_fn (one episode's state, u) -> its (f, Fu)
+    GPs and the learner `state` (B, ...)."""
+    if not cfg.closed_form and (pair_fn is None or state is None):
+        raise ValueError("closed_form=False needs pair_fn and state")
     m = cfg.u_dim
     B = x.shape[0]
     cobj, G_obj, s_row, u0 = _constants(cfg, x.dtype, x.device)
@@ -90,8 +102,13 @@ def learned_socp_cones(cfg: LearnedSOCPControllerConfig, cbfs, mder,
     dims = [m + 2]
     means, variances = [], []
     for cbf in cbfs:
-        (bfe, e), (V, bfv, v), mean, var = cbc2_closed_form_terms(
-            cbf, cfg.k_alpha, mder, x, u0.expand(B, m))
+        if cfg.closed_form:
+            terms = cbc2_closed_form_terms(cbf, cfg.k_alpha, mder, x,
+                                           u0.expand(B, m))
+        else:
+            terms = cbc2_gp_terms(cbf, cfg.k_alpha, pair_fn, state, x,
+                                  u0.expand(B, m))
+        (bfe, e), (V, bfv, v), mean, var = terms
         A, b, bfc, d = cbc_to_socp_cone(bfe, e, V, bfv, v, extravars=3,
                                         relax_col=2)
         Gk = torch.cat([-bfc[:, None], -factor * A], 1)
@@ -112,14 +129,16 @@ def learned_socp_cones(cfg: LearnedSOCPControllerConfig, cbfs, mder,
 
 
 def learned_socp_control(cfg: LearnedSOCPControllerConfig, cbfs, mder,
-                         u_ref, x, u_fallback):
+                         u_ref, x, u_fallback,
+                         pair_fn: Optional[Callable] = None, state=None):
     """One control step for a batch of episodes: u (B, m) and
-    LearnedSOCPInfo, from the SOCPs of `learned_socp_cones`; u_fallback
-    (B, m) is the control of an episode whose solve failed (the clean
-    reference, never an exploration-perturbed one)."""
+    LearnedSOCPInfo, from the SOCPs of `learned_socp_cones` (pair_fn and
+    state: its GP path's); u_fallback (B, m) is the control of an episode
+    whose solve failed (the clean reference, never an
+    exploration-perturbed one)."""
     m = cfg.u_dim
     cobj, G, h, dims, means, variances = learned_socp_cones(
-        cfg, cbfs, mder, u_ref, x)
+        cfg, cbfs, mder, u_ref, x, pair_fn, state)
     sol = solve_socp(cobj, G, h, dims, iters=cfg.socp_iters)
     f64 = x.dtype == torch.float64
     feasible = (sol.pres < (1e-4 if f64 else 5e-3)) \

@@ -26,16 +26,20 @@ from .sim.rollout import first_episode
 
 
 def _learner(sim):
-    """The sim's learned dynamics: only the unicycle sim is served; the
-    pendulum's serving step builds its cones through the GP-expression
-    path, which the port does not have yet (A.5)."""
+    """The sim's learned dynamics: only the unicycle sim is served.  The
+    JAX package's CompiledController cannot serve a pendulum sim either:
+    it calls `sim.init_state(x0, key)` (bayesian_cbf_tpu/deploy.py:80),
+    which `PendulumOnlineSim` lacks, and unpacks five step outputs
+    (:118) where the pendulum's step returns four
+    (experiments/pendulum.py:51-75)."""
     lrn = getattr(sim, "learned_dynamics", None)
     if lrn is not None:
         return lrn
     if getattr(sim, "learned", None) is not None:
         raise NotImplementedError(
-            "serving a pendulum sim needs the GP-expression path of its "
-            "step (A.5), which is not ported")
+            "the serving controller cannot serve a pendulum sim, as the "
+            "JAX package's cannot: the pendulum sim has no init_state and "
+            "its step returns four outputs, not the unicycle step's five")
     raise ValueError("sim has no learned-dynamics field with a "
                      "continuous_updates flag")
 

@@ -105,8 +105,12 @@ def run_pendulum_online_batch(sim: PendulumOnlineSim, x0s,
     perturbation -> CBC2 SOCP (one IPM launch; an infeasible solve falls
     back to the clean LQR reference) -> reservoir record (with
     continuous_updates, a rank-1 cache append) -> Euler step of the true
-    pendulum.  The rollout is cut at the refit steps of `fit_segments`
-    (after every step t > 0 with t % train_every_n_steps == 0); the first
+    pendulum.  With sim.controller.closed_form False the CBC2 cones come
+    from the GP expression path, each episode's (f, Fu) pair made per u
+    from its learner state by `f_gp_and_fu_gp`; the LQR still reads the
+    moment derivatives.  The rollout is cut at the refit steps of
+    `fit_segments` (after every step t > 0 with t % train_every_n_steps
+    == 0); the first
     event runs `fit_now_first`, later ones `fit_now_warm`, each for the
     episodes with a non-empty reservoir.
 
@@ -132,8 +136,9 @@ def run_pendulum_online_batch(sim: PendulumOnlineSim, x0s,
                 u_lqr.shape, generator=generator, dtype=X.dtype,
                 device=X.device)
             u_ref = sim.egreedy.perturb(u_lqr, t, uni)
-            u, info = learned_socp_control(sim.controller, (sim.cbf,), mder,
-                                           u_ref, X, u_fallback=u_lqr)
+            u, info = learned_socp_control(
+                sim.controller, (sim.cbf,), mder, u_ref, X, u_fallback=u_lqr,
+                pair_fn=lrn.f_gp_and_fu_gp, state=states)
             states = lrn.record(states, X, u,
                                 j=None if draws is None else draws[t],
                                 generator=generator)

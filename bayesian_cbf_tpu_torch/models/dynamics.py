@@ -2,6 +2,11 @@
 and pendulum ground truths, the zero prior mean, and the online-learned
 residual MVGP with shift invariance, batched over episodes.  The state of
 the learner is a NamedTuple of tensors with a leading episode axis.
+
+The GP expressions of the dynamics (`fu_func_gp`, `f_gp_and_fu_gp`) are
+leaves of `gp.algebra` at one state x (n,) and one control u (m,); the
+learner's take one episode's state, its leaves without the episode axis
+(what `torch.func.vmap` over a batched state hands its function).
 """
 from __future__ import annotations
 
@@ -9,7 +14,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..gp.algebra import DeterministicGP, LeafGP
 from ..utils.func import normalize_radians
+from ..utils.linalg import kron
 from .mvgp import MVGP, MVGPCache, MVGPData, MVGPParams
 
 
@@ -44,6 +51,29 @@ def _map(fn, *trees):
         return fn(*trees)
     vals = [_map(fn, *parts) for parts in zip(*trees)]
     return type(t0)(*vals) if hasattr(t0, "_fields") else type(t0)(vals)
+
+
+def _unit(tree):
+    """tree with a unit episode axis in front of every leaf."""
+    return _map(lambda a: a[None], tree)
+
+
+def _fu_at(model, x, u):
+    """f(x) + g(x) u of a batch-first model at one state x (n,) and
+    control u (m,)."""
+    xb = x[None]
+    return model.f_func(xb)[0] + model.g_func(xb)[0] @ u
+
+
+def _unit_gain_gp(model, u, name):
+    """The Fu leaf of a known model: mean f(x) + g(x) u, covariance
+    (u^T u + 1) I, independent of every other leaf."""
+    n = model.state_size
+    return LeafGP(
+        mean=lambda x: _fu_at(model, x, u),
+        knl=lambda x, xp: (u @ u + 1.0) * torch.eye(n, dtype=u.dtype,
+                                                    device=u.device),
+        dim=n, assume_independence=True, name=name)
 
 
 def where_tree(keep: torch.Tensor, a_tree, b_tree):
@@ -83,6 +113,9 @@ class CartesianDynamics(NamedTuple):
 
     def F_func(self, x):
         return torch.cat([self.f_func(x)[..., None], self.g_func(x)], -1)
+
+    def fu_func_gp(self, u):
+        return _unit_gain_gp(self, u, "CartesianDynamics")
 
     def step(self, x, u, dt):
         xdot = self.f_func(x) + (self.g_func(x) @ u[..., None])[..., 0]
@@ -143,6 +176,28 @@ class AckermannDrive(NamedTuple):
         J[:, 1, 1, 2] = torch.cos(th)
         return J
 
+    def fu_func_gp(self, u):
+        """The prior Fu leaf: mean f(x) + g(x) u, covariance
+        (uh^T uh) diag(kernel_diag_A), uh = [1; u]."""
+        A = torch.diag(torch.tensor(self.kernel_diag_A, dtype=u.dtype,
+                                    device=u.device))
+        uh = torch.cat([torch.ones_like(u[:1]), u])
+        return LeafGP(mean=lambda x: _fu_at(self, x, u),
+                      knl=lambda x, xp: (uh @ uh) * A, dim=self.state_size,
+                      assume_independence=True, name="AckermannDrive")
+
+    def predict_fullmat(self, Xtest):
+        """The exact prior over vec F at states Xtest (B, b, n): (mean
+        (B, b (1+m) n), ordered as the learner's, var I_b kron (I kron
+        diag(kernel_diag_A)) (B, b (1+m) n, b (1+m) n))."""
+        Bsz, b, n = Xtest.shape
+        kw = dict(dtype=Xtest.dtype, device=Xtest.device)
+        A = torch.diag(torch.tensor(self.kernel_diag_A, **kw))
+        var = kron(torch.eye(b, **kw),
+                   kron(torch.eye(self.ctrl_size + 1, **kw), A))
+        mean = self.F_func(Xtest.reshape(-1, n)).transpose(-1, -2)
+        return mean.reshape(Bsz, -1), var.expand(Bsz, -1, -1)
+
     def step(self, x, u, dt):
         xdot = self.f_func(x) + (self.g_func(x) @ u[..., None])[..., 0]
         return x + xdot * dt, xdot
@@ -167,6 +222,9 @@ class ZeroDynamics(NamedTuple):
         """d F[i, j] / d x_a: (B, n, 1+m, n)."""
         return x.new_zeros((x.shape[0], self.state_size, 1 + self.ctrl_size,
                             self.state_size))
+
+    def fu_func_gp(self, u):
+        return _unit_gain_gp(self, u, "Zero")
 
     def step(self, x, u, dt):
         return x, torch.zeros_like(x)
@@ -200,6 +258,9 @@ class PendulumDynamics(NamedTuple):
         J[:, 0, 0, 1] = 1.0
         J[:, 1, 0, 0] = -(self.gravity / self.length) * torch.cos(x[:, 0])
         return J
+
+    def fu_func_gp(self, u):
+        return _unit_gain_gp(self, u, "Pendulum")
 
     def step(self, x, u, dt):
         xdot = self.f_func(x) + (self.g_func(x) @ u[..., None])[..., 0]
@@ -339,6 +400,87 @@ class LearnedShiftInvariantDynamics(NamedTuple):
             D2 = D2 * (keep[:, None] * keep)[..., None, None]
         return (md.F_func(x) + fT, md.F_jac(x) + dfT, Bk, D1, D2,
                 state.params.A)
+
+    def f_func(self, state: LearnedDynState, x):
+        """The learned model's mean drift at states x (B, n): (B, n)."""
+        learned = self.gp.f_mean(state.params, state.data, state.cache,
+                                 self._shift_inv(x))
+        return self.mean_dynamics.f_func(x) + learned
+
+    def g_func(self, state: LearnedDynState, x):
+        """The learned model's mean actuation at states x (B, n):
+        (B, n, m)."""
+        learned = self.gp.g_mean(state.params, state.data, state.cache,
+                                 self._shift_inv(x))
+        return self.mean_dynamics.g_func(x) + learned
+
+    def predict_fullmat(self, state: LearnedDynState, Xtest):
+        """The posterior over vec F at states Xtest (B, b, n), the mean
+        dynamics' F added to the mean: (mean (B, b (1+m) n), var (B,
+        b (1+m) n, b (1+m) n)); without learning, the mean dynamics'
+        prior (`AckermannDrive.predict_fullmat`)."""
+        md = self.mean_dynamics
+        if not self.enable_learning:
+            return md.predict_fullmat(Xtest)
+        dmean, dvar = self.gp.predict_fullmat(
+            state.params, state.data, state.cache, self._shift_inv(Xtest))
+        Bsz, b, n = Xtest.shape
+        mmean = md.F_func(Xtest.reshape(-1, n)).transpose(-1, -2)
+        return mmean.reshape(Bsz, -1) + dmean, dvar
+
+    # ------------------------------------------ GP expressions, one episode
+
+    def _learned_fu_gp(self, state: LearnedDynState, u,
+                       assume_independence=True):
+        """The learned residual's Fu leaf of one episode's `state` at the
+        control u (m,); with assume_independence, independent of every
+        other leaf."""
+        gp, si, st = self.gp, self._shift_inv, _unit(state)
+        ub = u[None]
+        return LeafGP(
+            mean=lambda x: gp.fu_mean(st.params, st.data, st.cache, ub,
+                                      si(x)[None])[0],
+            knl=lambda x, xp: gp.fu_knl(st.params, st.data, st.cache, ub,
+                                        si(x)[None], si(xp)[None])[0],
+            dim=gp.x_dim, assume_independence=assume_independence,
+            name="learned_fu")
+
+    def fu_func_gp(self, state: LearnedDynState, u):
+        """The mean dynamics' f + g u as a deterministic GP plus the
+        learned residual's leaf (one episode); without learning, the mean
+        dynamics' own `fu_func_gp`."""
+        md = self.mean_dynamics
+        if not self.enable_learning:
+            return md.fu_func_gp(u)
+        det = DeterministicGP(lambda x: _fu_at(md, x, u), dim=self.gp.x_dim,
+                              name="mean_dyn")
+        return det + self._learned_fu_gp(state, u)
+
+    def f_gp_and_fu_gp(self, state: LearnedDynState, u):
+        """(f, Fu) of one episode's `state` at the control u (m,), as the
+        learned leaves with cov(Fu(x), f(x')) = covar_fu_f registered,
+        each plus the mean dynamics' part when learning is on."""
+        gp, md, si, st = self.gp, self.mean_dynamics, self._shift_inv, \
+            _unit(state)
+        ub = u[None]
+        f_leaf = LeafGP(
+            mean=lambda x: gp.f_mean(st.params, st.data, st.cache,
+                                     si(x)[None])[0],
+            knl=lambda x, xp: gp.f_knl(st.params, st.data, st.cache,
+                                       si(x)[None], si(xp)[None])[0],
+            dim=gp.x_dim, name="learned_f")
+        fu_leaf = self._learned_fu_gp(state, u, assume_independence=False)
+        fu_leaf.register_covar(
+            f_leaf,
+            lambda x, xp: gp.covar_fu_f(st.params, st.data, st.cache, ub,
+                                        si(x)[None], si(xp)[None])[0])
+        if not self.enable_learning:
+            return f_leaf, fu_leaf
+        f_det = DeterministicGP(lambda x: md.f_func(x[None])[0],
+                                dim=gp.x_dim, name="mean_f")
+        fu_det = DeterministicGP(lambda x: _fu_at(md, x, u), dim=gp.x_dim,
+                                 name="mean_fu")
+        return f_det + f_leaf, fu_det + fu_leaf
 
     def kernel_channels(self, state: LearnedDynState, moments, u
                         ) -> KernelChannels:

@@ -15,7 +15,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils.linalg import cho_solve_small_unrolled, psd_chol_small_ladder
+from ..utils.linalg import (cho_solve_small_unrolled, kron,
+                            psd_chol_small_ladder)
 
 _SQRT2PI_LOG = math.log(2.0 * math.pi)
 
@@ -391,6 +392,72 @@ class MVGP(NamedTuple):
         uh = torch.cat([torch.ones_like(u[:, :1]), u], -1)
         return (self.fT_post(params, data, cache, x) @ uh[..., None])[..., 0]
 
+    def fu_knl(self, params, data, cache, u, x, xp):
+        """cov(F(x)^T uh, F(x')^T uh) = (uh^T Bk(x, x') uh) A: (B, n, n)."""
+        uh = torch.cat([torch.ones_like(u[:, :1]), u], -1)
+        s = torch.einsum('bi,bij,bj->b', uh,
+                         self.Bk_single(params, data, cache, x, xp), uh)
+        return s[:, None, None] * params.A
+
+    def f_mean(self, params, data, cache, x):
+        """Posterior mean of f(x) = F(x)^T e0: (B, n)."""
+        return self.fT_post(params, data, cache, x)[..., 0]
+
+    def g_mean(self, params, data, cache, x):
+        """Posterior mean of g(x) = F(x)^T[:, 1:]: (B, n, m)."""
+        return self.fT_post(params, data, cache, x)[..., 1:]
+
+    def f_knl(self, params, data, cache, x, xp):
+        """cov(f(x), f(x')) = Bk(x, x')[0, 0] A: (B, n, n)."""
+        return (self.Bk_single(params, data, cache, x, xp)[:, 0, 0, None,
+                                                            None]
+                * params.A)
+
+    def covar_fu_f(self, params, data, cache, u, x, xp):
+        """cov(F(x)^T uh, f(x')) = (uh^T Bk(x, x') e0) A: (B, n, n)."""
+        uh = torch.cat([torch.ones_like(u[:, :1]), u], -1)
+        s = (uh[:, None] @ self.Bk_single(params, data, cache, x, xp))[:, 0,
+                                                                       0]
+        return s[:, None, None] * params.A
+
+    def predict_matrix(self, params, data, cache, Xtest, Xtestp=None,
+                       compute_cov: bool = True):
+        """The posterior of F at test states Xtest (B, b, n) (and Xtestp
+        (B, b', n), by default Xtest): (meanFT (B, b, n, 1+m), A (B, n, n),
+        Bk (B, b, b', 1+m, 1+m)) with cov(vec F(x_i), vec F(x'_j)) =
+        Bk[i, j] kron A; without compute_cov, Bk is zero.  Solves against
+        the cached factor L."""
+        Xp = Xtest if Xtestp is None else Xtestp
+        Bsz, b = Xtest.shape[:2]
+        bp = Xp.shape[1]
+        mh = 1 + self.u_dim
+        kb = self._kb_star(params, data, Xtest)               # (B, b, K, 1+m)
+        meanFT = (params.mean_M.transpose(-1, -2)[:, None]
+                  + torch.einsum('bkn,bskj->bsnj', cache.alpha, kb))
+        if not compute_cov:
+            return meanFT, params.A, Xtest.new_zeros((Bsz, b, bp, mh, mh))
+        kbp = kb if Xtestp is None else self._kb_star(params, data, Xp)
+        prior = (self.k_xx(params, Xtest, Xp)[..., None, None]
+                 * params.B[:, None, None])
+        K = cache.L.shape[-1]
+        rhs = kbp.transpose(1, 2).reshape(Bsz, K, bp * mh)
+        sol = torch.cholesky_solve(rhs, cache.L).reshape(Bsz, K, bp, mh)
+        return meanFT, params.A, prior - torch.einsum('bski,bkcj->bscij',
+                                                      kb, sol)
+
+    def predict_fullmat(self, params, data, cache, Xtest):
+        """The posterior over vec F at test states Xtest (B, b, n):
+        (mean (B, b (1+m) n), var (B, b (1+m) n, b (1+m) n)), ordered by
+        state, then the column j of F^T, then the output i; var =
+        sym(Bk) kron A."""
+        meanFT, A, Bk = self.predict_matrix(params, data, cache, Xtest)
+        Bsz, b = Xtest.shape[:2]
+        mh = 1 + self.u_dim
+        BkXX = Bk.transpose(2, 3).reshape(Bsz, b * mh, b * mh)
+        BkXX = 0.5 * (BkXX + BkXX.transpose(-1, -2))
+        return (meanFT.transpose(-1, -2).reshape(Bsz, -1),
+                kron(BkXX, A))
+
     def posterior_derivatives(self, params, data, cache, x):
         """The posterior at states x (B, n) with its x-derivatives, in
         closed form from the RBF cross-covariance (the JAX package takes
@@ -523,3 +590,8 @@ def make_mvgp_rank1(x_dim: int, u_dim: int, **kw) -> MVGP:
     """Rank-1 task factors + near-flat Gamma lengthscale prior."""
     kw.setdefault("gamma_prior", (1e-3, 1e-3))
     return MVGP(x_dim, u_dim, rank_A=1, rank_B=1, **kw)
+
+
+def make_mvgp_diag(x_dim: int, u_dim: int, **kw) -> MVGP:
+    """Diagonal task covariances (rank_A = rank_B = 0)."""
+    return MVGP(x_dim, u_dim, rank_A=0, rank_B=0, **kw)

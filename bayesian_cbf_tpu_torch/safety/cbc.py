@@ -1,17 +1,21 @@
 """Chance-constraint safety factors, the relative-degree-2 control
-barrier condition (CBC2) of a learned model in closed form, and its
-second-order cone."""
+barrier condition (CBC2) of a learned model, and its second-order cone.
+
+The CBC2 has two routes to the same terms: as a GP expression at one
+state (`cbc2_gp`), whose u-structure `cbc2_quadratic_terms` extracts by
+differentiating in u (`cbc2_gp_terms` vectorizes both over a batch of
+episodes), and in closed form from the posterior's moment derivatives
+(`cbc2_closed_form_terms`).
+"""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from ..gp.algebra import EPS, DeterministicGP, GP, GradientGP
+from ..utils.func import affine_terms, quadratic_terms
 from ..utils.linalg import psd_chol_small_ladder
-
-# eigenvalues of the CBC2's gradient covariance in (-EPS, 0) are roundoff
-# and are set to zero (the JAX package's GradientGP clamp)
-EPS = 2e-3
 
 
 def cbc1_safety_factor(delta: float) -> float:
@@ -28,6 +32,61 @@ def cbc2_safety_factor(delta: float) -> float:
     if not delta < 0.5:
         raise ValueError("require more than 50% safety (delta < 0.5)")
     return math.sqrt((1.0 - delta) / delta)
+
+
+def cbc2_gp(h, grad_h, pair_fn, x_dim: int, k_alpha, u) -> GP:
+    """The relative-degree-2 CBC as a GP at one state, for control u (m,):
+
+        CBC2 = L2h + k_alpha[0] h + k_alpha[1] L1h,
+        L1h = grad_h^T f,   L2h = grad(L1h)^T (F u).
+
+    h, grad_h: the barrier and its gradient at one state x (n,).
+    pair_fn(u) returns the model's (f, Fu) GPs at u with their
+    cross-covariance registered (the JAX package's cbc2_gp takes the two
+    as separate callbacks)."""
+    f_gp, fu_gp = pair_fn(u)
+    h_gp = DeterministicGP(lambda x: h(x).reshape(1), dim=1, name="h")
+    grad_h_gp = DeterministicGP(grad_h, dim=x_dim, name="grad_h")
+    L1h = grad_h_gp.t() @ f_gp
+    L2h = GradientGP(L1h, x_dim=x_dim).t() @ fu_gp
+    return L2h + h_gp * k_alpha[0] + L1h * k_alpha[1]
+
+
+def cbc2_quadratic_terms(cbc_of_u, x, u0):
+    """The u-structure of a family of scalar GPs u -> cbc_of_u(u) at one
+    state x (n,): ((bfe (m,), e), (V (m, m), bfv (m,), v), mean, var) with
+
+        mean(x; u) = bfe^T u + e              (affine in u)
+        var(x; u)  = u^T V u + bfv^T u + v    (quadratic in u),
+
+    extracted by differentiating at u0 (m,), and the two at u0 from the
+    terms (each family is evaluated once)."""
+    mean_fn = lambda u: cbc_of_u(u).mean(x).reshape(())
+    knl_fn = lambda u: cbc_of_u(u).knl(x, x).reshape(())
+    bfe, e = affine_terms(mean_fn, u0)
+    V, bfv, v = quadratic_terms(knl_fn, u0)
+    return (bfe, e), (V, bfv, v), bfe @ u0 + e, u0 @ V @ u0 + bfv @ u0 + v
+
+
+def cbc2_gp_terms(cbf, k_alpha, pair_fn, state, x, u0):
+    """`cbc2_quadratic_terms(cbc2_gp(...))` for a batch: the CBC2 terms of
+    barrier `cbf` (batch-first cbf and grad_cbf) at states x (B, n),
+    extracted at u0 (B, m), each episode with the (f, Fu) pair
+    pair_fn(state_b, u) of its own learner state (`state`: a tree of
+    tensors with the episode axis in front, e.g. a LearnedDynState and
+    `LearnedShiftInvariantDynamics.f_gp_and_fu_gp`).  Vectorized with
+    `torch.func.vmap`; returns the terms with the episode axis in front,
+    as `cbc2_closed_form_terms` does."""
+    n = x.shape[-1]
+    h = lambda x1: cbf.cbf(x1[None])[0]
+    grad_h = lambda x1: cbf.grad_cbf(x1[None])[0]
+
+    def one(x1, u01, st):
+        return cbc2_quadratic_terms(
+            lambda u: cbc2_gp(h, grad_h, lambda v: pair_fn(st, v), n,
+                              k_alpha, u), x1, u01)
+
+    return torch.func.vmap(one)(x, u0, state)
 
 
 def _clamp_small_negative_eigs(K):

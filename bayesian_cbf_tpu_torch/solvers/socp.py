@@ -98,3 +98,20 @@ def solve_socp(c, G, h, dims: Tuple[int, ...], iters: int = 30,
     gap = torch.abs(torch.sum(S * Z, (-2, -1))) / float(C)
     return SOCPSolution(x=x, s=S, z=Z, pres=pres, dres=dres, gap=gap,
                         pcost=torch.sum(c * x, -1))
+
+
+def socp_residuals(sol: SOCPSolution, tol: float = 1e-6):
+    """(B,) bool: both relative residuals of each solution below tol."""
+    return (sol.pres < tol) & (sol.dres < tol)
+
+
+def cones_from_constraints(constraints):
+    """(G (B, M, nx), h (B, M), dims) of the constraints
+    ||A_k x + b_k|| <= c_k^T x + d_k, each (A_k (B, k, nx), b_k (B, k),
+    c_k (B, nx), d_k (B,)): G_k = [-c_k^T; -A_k], h_k = [d_k; b_k]."""
+    Gs, hs = [], []
+    for A, b, cvec, d in constraints:
+        Gs.append(torch.cat([-cvec[:, None], -A], 1))
+        hs.append(torch.cat([d[:, None], b], 1))
+    return (torch.cat(Gs, 1), torch.cat(hs, 1),
+            tuple(G.shape[1] for G in Gs))

@@ -1,10 +1,12 @@
 """Small linear-algebra helpers, batched over leading axes.
 
-Counterpart of `bayesian_cbf_tpu/utils/linalg.py`: the Kronecker product
-and the statically-unrolled Cholesky factorizations of small matrices
-(the 3x3 task matrix A of the MLL and the 3x3 posterior row covariance
-Bk of the cones).  Unrolled, each factorization is a short chain of
-elementwise ops over the whole batch instead of a batched LAPACK call.
+Counterpart of `bayesian_cbf_tpu/utils/linalg.py`: the Kronecker product,
+the Cholesky factorization with a jitter ladder (also of a masked Gram),
+the eigenvalue clamp to the PSD cone, and the statically-unrolled
+Cholesky factorizations of small matrices (the 3x3 task matrix A of the
+MLL and the 3x3 posterior row covariance Bk of the cones).  Unrolled,
+each factorization is a short chain of elementwise ops over the whole
+batch instead of a batched LAPACK call.
 """
 from __future__ import annotations
 
@@ -20,6 +22,51 @@ def kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     r, s = b.shape[-2], b.shape[-1]
     out = a[..., :, None, :, None] * b[..., None, :, None, :]
     return out.reshape(*a.shape[:-2], p * r, q * s)
+
+
+def psd_cholesky(K: torch.Tensor, init_jitter: float = 1e-6,
+                 num_tries: int = 8, growth: float = 10.0):
+    """Cholesky of each symmetrized K (..., n, n) at the first of the
+    jitters 0, init_jitter scale, ..., init_jitter growth^(num_tries-1)
+    scale (scale = max(mean |diag K|, 1) per matrix) whose factorization
+    succeeds and is finite.  Returns (K + jitter I, L) for that rung; where
+    no rung succeeds, the unjittered K and L = 0."""
+    K, diag_scale = _sym_scale(K)
+    n = K.shape[-1]
+    eye = torch.eye(n, dtype=K.dtype, device=K.device)
+    jit = torch.cat([K.new_zeros(1), init_jitter * growth ** torch.arange(
+        num_tries, dtype=K.dtype, device=K.device)])
+    jit = jit.reshape((-1,) + (1,) * diag_scale.ndim)
+    Ks = K + (jit * diag_scale)[..., None, None] * eye      # (R, ..., n, n)
+    Ls, info = torch.linalg.cholesky_ex(Ks)
+    ok = (info == 0) & torch.isfinite(Ls).all(-1).all(-1)
+    Ls = torch.where(ok[..., None, None], Ls, torch.zeros_like(Ls))
+    first = torch.argmax(ok.to(torch.int8), dim=0)          # first ok rung
+    idx = first[None, ..., None, None].expand((1,) + Ks.shape[1:])
+    return torch.gather(Ks, 0, idx)[0], torch.gather(Ls, 0, idx)[0]
+
+
+def psd_clamp_eigh(K: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """The symmetrized K (..., n, n) with its eigenvalues clamped from
+    below at eps."""
+    K = 0.5 * (K + K.transpose(-1, -2))
+    w, v = torch.linalg.eigh(K)
+    w = torch.clamp(w, min=eps)
+    return (v * w[..., None, :]) @ v.transpose(-1, -2)
+
+
+def masked_cholesky(K: torch.Tensor, mask: torch.Tensor,
+                    init_jitter: float = 1e-6):
+    """`psd_cholesky` of the Gram K (..., n, n) restricted to the rows and
+    columns where mask (..., n) is nonzero: the others become identity
+    rows, so a solve against the factor is exact on the valid block when
+    the right-hand side is zero on the invalid rows.  Returns
+    (K_masked + jitter I, L)."""
+    m = mask.to(K.dtype)
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    Km = K * (m[..., :, None] * m[..., None, :]) + eye * (1.0 - m)[..., :,
+                                                                    None]
+    return psd_cholesky(Km, init_jitter=init_jitter)
 
 
 def _sym_scale(K: torch.Tensor):

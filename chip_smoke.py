@@ -95,6 +95,21 @@ Phases (each raises on failure; nothing is caught):
                  finite and below 5), then on one set of inputs through
                  the kernels and through their plain versions on the
                  card and plain on the CPU in f32 and f64.
+ 10. GP path  -- the cones through the GP expression path: (a) the CBC2
+                 terms of the 256 reference-schedule pendulum episodes
+                 (a learner fitted on their first 201 steps, the states of
+                 step 200) by `cbc2_gp_terms` in f32, held with the f32
+                 closed form to the f64 closed form (median and p90
+                 distance within 2x the closed form's); (b) phase 7's
+                 pendulum episode with closed_form=False (launch counts,
+                 the pendulum verdict, max |dU| against phase 7's);
+                 (c) `bayes_clf_control_gp` cold at (4, 4, 4) on the
+                 bayes_cbf configuration's start (u within rtol 1e-3, atol
+                 1e-4 of `bayes_clf_control`'s) and at 256 states of phase
+                 7's episode (every problem the closed form solves solved,
+                 median and p90 distance from an f64 solve within 2x the
+                 closed form's); ms a step of each path beside the closed
+                 form's.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -103,6 +118,7 @@ import json
 import math
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1487,7 +1503,7 @@ def run_pendulum(dev, card, label):
     finiteness, the outcome gates of scripts/check_outcomes.py
     (pendulum_batched_safe and pendulum_batched_cu_safe, with feasible >=
     0.95 for both).  Returns the launch counts, the accepted rungs and
-    the walls with the outcomes."""
+    the walls with the outcomes, and the last rollout's output."""
     tag = f"pendulum {label}"
     print(f"[{tag}] {bt.PENDULUM_CONFIGS[label]}", flush=True)
     record = bt.run_protocol(tag, dev, reps=1, card=card)
@@ -1502,7 +1518,7 @@ def run_pendulum(dev, card, label):
     cold, warm_s = record["first_wall_s"], record["walls_s"][0]
     return record["launches"], record["refresh_rungs"], dict(
         wall_s=cold, steps_per_s=B * T / cold, warm_wall_s=warm_s,
-        warm_steps_per_s=B * T / warm_s, **gates)
+        warm_steps_per_s=B * T / warm_s, **gates), record["out"]
 
 
 def _aten_ops(fn):
@@ -1631,14 +1647,15 @@ def phase_outcomes(dev, card):
     scripts/check_outcomes_torch.py, each with its outcomes, wall (not a
     benchmark), launch counts held to the schedule's and the accepted
     rungs of its cache refreshes; then the verdicts they decide, each
-    required true.  Returns the launch counts per run."""
+    required true.  Returns the launch counts per run and each run's
+    (outputs, wall s)."""
     from bayesian_cbf_tpu_torch.models.mvgp import MVGP
     co = _check_outcomes_torch()
     fns = bt.counters()
     runs = {name: (lambda name=name: co.unicycle_run(name, dev))
             for name in co.UNICYCLE_RUNS}
     runs["pendulum_online"] = lambda: co.pendulum_run(dev)
-    results, launches = {}, {}
+    results, launches, outs = {}, {}, {}
     for name, run in runs.items():
         for fn in fns.values():
             fn.launches = 0
@@ -1671,12 +1688,13 @@ def phase_outcomes(dev, card):
                  f"outcomes {name}: accepted rungs {rungs} do not add up to "
                  f"{_n_fits(lrn, T)} cache refreshes")
         launches[name] = counts
+        outs[name] = (out, wall)
     verdicts = co.verdicts(results)
     print(f"[outcomes] verdicts {verdicts}", flush=True)
     _require(all(verdicts.get(k) is True for k in OUTCOME_VERDICTS),
              f"outcome verdicts failed: {verdicts}")
     _require(all(verdicts.values()), f"outcome verdicts failed: {verdicts}")
-    return launches
+    return launches, outs
 
 
 # the move-to-pose demos at the JAX tests' sizes
@@ -2019,6 +2037,285 @@ def _car_learn_same_inputs(dev, card):
                  for _, r in res.values()), f"car learn, same inputs: {out}")
 
 
+def _quantiles(d):
+    d = d.double().cpu()
+    return float(d.median()), float(d.quantile(0.9)), float(d.max())
+
+
+def _synced_ms(fn, reps=3):
+    """Median host wall of fn() in ms, each call ended by a device
+    synchronization, after one call that is not timed."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def _gp_cbc2_terms(dev, card, out):
+    """(a) The CBC2 terms of B = 256 pendulum episodes through the GP
+    expression path (`cbc2_gp_terms`, vectorized) against the closed form:
+    a learner of the reference-schedule batch's configuration is fitted
+    (`fit_now_first`) on the first K + 1 steps of that batch's
+    trajectories `out`, and the terms are taken at each episode's state
+    of step K, u0 = 0.5.  The GP path in f32 and the closed form in f32
+    are held to the closed form in f64 on the card: the GP path's median
+    and 90th-percentile distance within twice the f32 closed form's.
+    Read, not held: whether a second call repeats the GP path's bits, and
+    the operations it runs that have no deterministic CUDA version (the
+    warnings of `torch.use_deterministic_algorithms(warn_only=True)`).
+    Returns the launch counts of the fit and the GP path."""
+    from bayesian_cbf_tpu_torch.models.dynamics import _map
+    from bayesian_cbf_tpu_torch.safety import cbc as tcbc
+    label = "gp cbc2 terms"
+    sim = bt.pendulum_sim(dev, **bt.PENDULUM_CONFIGS["reference schedule"])
+    lrn, cbf, k_alpha = sim.learned, sim.cbf, sim.controller.k_alpha
+    B, K = out.X.shape[0], lrn.max_train
+    xq = out.X[:, K].contiguous()
+    u0 = torch.full((B, 1), 0.5, dtype=xq.dtype, device=dev)
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        st = lrn.init_state(B, gen, dev, xq.dtype)
+        for t in range(K + 1):
+            st = lrn.record(st, out.X[:, t], out.U[:, t], generator=gen)
+        st = lrn.fit_now_first(st)
+        return st, tcbc.cbc2_gp_terms(cbf, k_alpha, lrn.f_gp_and_fu_gp, st,
+                                      xq, u0)
+
+    (st, gp), wall, counts, rungs = _counted(run)
+    want = dict.fromkeys(bt.counters(), 0)
+    want.update(kinv_logdet=lrn.training_iter, chol_linv=3)
+    closed = lambda s, x, u: tcbc.cbc2_closed_form_terms(
+        cbf, k_alpha, lrn.moment_derivatives(s, x), x, u)
+    cf = closed(st, xq, u0)
+    st64 = _map(lambda a: a.double() if a.is_floating_point() else a, st)
+    ref = closed(st64, xq.double(), u0.double())
+    co = _check_outcomes_torch()
+    d_gp = co.cbc2_term_distance(gp, ref)
+    d_cf = co.cbc2_term_distance(cf, ref)
+    q_gp, q_cf = _quantiles(d_gp), _quantiles(d_cf)
+    gp_terms = lambda: tcbc.cbc2_gp_terms(cbf, k_alpha, lrn.f_gp_and_fu_gp,
+                                          st, xq, u0)
+    gp_ms = _synced_ms(gp_terms)
+    cf_ms = _synced_ms(lambda: closed(st, xq, u0))
+    finite = bool(torch.isfinite(d_gp).all())
+    repeat = float(co.cbc2_term_distance(gp_terms(), gp).max())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            gp_terms()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    print(f"[{label}] B={B} K={K}: a learner fitted on the reference-"
+          f"schedule batch's first {K + 1} steps ({lrn.training_iter} Adam "
+          f"iterations), the terms at step {K}: distance from the f64 closed "
+          f"form, median / p90 / max: GP path f32 {q_gp[0]:.3e} / "
+          f"{q_gp[1]:.3e} / {q_gp[2]:.3e}, closed form f32 {q_cf[0]:.3e} / "
+          f"{q_cf[1]:.3e} / {q_cf[2]:.3e} (bar: the GP path's median and p90 "
+          f"within 2x the closed form's); {gp_ms:.3f} ms for the GP path's "
+          f"terms of the batch, {cf_ms:.3f} ms for the closed form's "
+          f"(moment derivatives included), on {card}; launches {counts} "
+          f"(fit: {want}); accepted rungs {rungs}; {wall:.3f} s in all; a "
+          f"second call repeats the GP path's terms {repeat == 0.0} (largest"
+          f" distance {repeat:.3e}); its operations without a deterministic "
+          f"CUDA version: {nondet}", flush=True)
+    _require(finite, f"{label}: non-finite GP-path terms")
+    _require(counts == want, f"{label}: launch counts {counts} != {want}")
+    _require(sum(rungs) == B, f"{label}: accepted rungs {rungs}")
+    _require(q_gp[0] <= 2.0 * q_cf[0] and q_gp[1] <= 2.0 * q_cf[1],
+             f"{label}: GP path {q_gp} against closed form {q_cf}")
+    return counts
+
+
+def _gp_pendulum_episode(dev, card, closed, seeds=8):
+    """(b) The single pendulum episode of phase 7 (B = 1, K = 200, 250
+    steps, a refit every 10) with `closed_form=False`, through
+    scripts/check_outcomes_torch.py: launch counts held to the schedule,
+    one accepted rung a refresh, the pendulum verdict; max |dU| against
+    phase 7's closed-form episode `closed` (outputs, wall) before the
+    first refit and over the episode, and ms a step of both.
+
+    The steps before the first refit are held with three witnesses
+    (`pendulum_prerefit_run` / `pendulum_prerefit_terms`): the CBC2 terms
+    at the episode's states there, GP path and closed form in f32 against
+    the closed form in f64 (the GP path's largest distance within 4x the
+    f32 closed form's); the two routes in f64 on the host (max |dU| within
+    8e-4, the roundoff floor of tests/test_torch_gp_path.py); and the
+    closed form's own steps with its terms moved by the GP path's largest
+    distance from them, `seeds` times: the GP path's max |dU| must be no
+    larger than the largest such move makes.  The unmoved closed form
+    must repeat phase 7's first steps bit for bit.  Returns the launch
+    counts of the episode."""
+    label = "gp pendulum episode"
+    co = _check_outcomes_torch()
+    (sim, out), wall, counts, rungs = _counted(
+        lambda: co.pendulum_run(dev, closed_form=False))
+    lrn, T = sim.learned, sim.numSteps
+    want = _expected_launches(lrn, T, False)
+    res = co.pendulum_result(out)
+    verdicts = co.verdicts({"pendulum_online": res})
+    cout, cwall = closed
+    first = lrn.train_every_n_steps + 1
+    du = (out.U - cout.U).abs()
+    du_pre = float(du[:first].max())
+    print(f"[{label}] B=1 K={lrn.max_train} T={T}, closed_form=False: "
+          f"{wall * 1e3 / T:.3f} ms a step (fits included) against the "
+          f"closed form's {cwall * 1e3 / T:.3f} (phase 7) on {card}; "
+          f"launches {counts} (schedule: {want}); accepted rungs {rungs}; "
+          f"max |dU| against the closed form {du_pre:.3e} "
+          f"before the first refit, {float(du.max()):.3e} over the episode; "
+          f"outcomes {res}; verdicts {verdicts}", flush=True)
+    _require(counts == want, f"{label}: launch counts {counts} != {want}")
+    _require(sum(rungs) == _n_fits(lrn, T),
+             f"{label}: accepted rungs {rungs}")
+    _require(verdicts.get("pendulum_online_no_damage") is True,
+             f"{label}: verdicts {verdicts}")
+    t_gp, t_cl, t_64 = co.pendulum_prerefit_terms(
+        sim, out.X[:first].contiguous())
+    q_gp = _quantiles(co.cbc2_term_distance(t_gp, t_64))
+    q_cl = _quantiles(co.cbc2_term_distance(t_cl, t_64))
+    delta = float(co.cbc2_term_distance(t_gp, t_cl).max())
+    base = co.pendulum_prerefit_run(dev)[1]
+    moved = [co.pendulum_prerefit_run(dev, delta=delta, seed=s)[1]
+             for s in range(seeds)]
+    du_moved = [float((m.U - cout.U[:first]).abs().max()) for m in moved]
+    falls = [int((~m.info.feasible).sum()) for m in moved]
+    e64 = {c: co.pendulum_prerefit_run("cpu", closed_form=c,
+                                       dtype=torch.float64)[1]
+           for c in (True, False)}
+    du64 = float((e64[False].U - e64[True].U).abs().max())
+    print(f"[{label}] the {first} steps before the first refit: max |dU| "
+          f"per step {du[:first, 0].tolist()}, fallback steps "
+          f"{int((~out.info.feasible[:first]).sum())} (closed form "
+          f"{int((~cout.info.feasible[:first]).sum())}); CBC2 terms at "
+          f"their states from the f64 closed form, median / p90 / max: GP "
+          f"path f32 {q_gp[0]:.3e} / {q_gp[1]:.3e} / {q_gp[2]:.3e}, closed "
+          f"form f32 {q_cl[0]:.3e} / {q_cl[1]:.3e} / {q_cl[2]:.3e} (bar: "
+          f"max within 4x); GP path against closed form in f64 on the host "
+          f"max |dU| {du64:.3e} (bar 8e-4); the closed form with its terms "
+          f"moved by {delta:.3e} (the GP path's largest distance from it), "
+          f"{seeds} seeds: max |dU| {[float(f'{d:.3e}') for d in du_moved]},"
+          f" fallback steps {falls} (bar: the GP path's {du_pre:.3e} at most"
+          f" the largest); the unmoved closed form repeats phase 7's steps "
+          f"{bool(torch.equal(base.U, cout.U[:first]))}", flush=True)
+    _require(torch.equal(base.U, cout.U[:first]),
+             f"{label}: the closed form's first steps differ from phase 7's")
+    _require(q_gp[2] <= 4.0 * q_cl[2],
+             f"{label}: pre-refit terms {q_gp} against closed form {q_cl}")
+    _require(du64 <= 8e-4, f"{label}: f64 max |dU| {du64}")
+    _require(du_pre <= max(du_moved),
+             f"{label}: pre-refit max |dU| {du_pre} against {du_moved}")
+    return counts
+
+
+def _gp_bayes_controller(dev, card, name, episode):
+    """(c) `bayes_clf_control_gp` cold at (4, 4, 4) on the configuration
+    of the README experiment `name` (bayes_cbf: the prior's Fu leaf;
+    learning: the learned leaf, under a learner state fitted on the
+    episode's first K + 1 steps): at its start (B = 1, step 0) and at 256
+    states of phase 7's episode `episode` (outputs, wall), evenly spaced
+    over its steps.  At the start its u must be within rtol 1e-3, atol
+    1e-4 of `bayes_clf_control`'s (with learning, where the two f32
+    routes part further, its distance from an f64 solve within the f32
+    closed form's 90th percentile over the 256 states); on the 256
+    states every problem the closed form solves must be solved, and the
+    median and p90 distance of its u from an f64 solve (the closed form,
+    plain, on the CPU) within twice the f32 closed form's.  Returns the launch
+    counts of the two GP-path steps."""
+    from bayesian_cbf_tpu_torch.control.bayes_controller import (
+        bayes_clf_control, bayes_clf_control_gp)
+    from bayesian_cbf_tpu_torch.experiments import unicycle as tu
+    from bayesian_cbf_tpu_torch.models.dynamics import _map
+    label = f"gp bayes_clf_control {name}"
+    sim = tu.make_ackermann_tracking_sim(**tu.EXPERIMENTS[name], device=dev)
+    lrn = sim.learned_dynamics
+    X, U = episode[0].X, episode[0].U
+    steps = torch.linspace(0, X.shape[0] - 1, 256, device=dev).round().long()
+    x, x0 = X[steps].contiguous(), torch.tensor(
+        [tu.STATE_START], dtype=X.dtype, device=dev)
+    co = _check_outcomes_torch()
+    st, st0 = (co.learner_state_from_episode(lrn, X, U, n)
+               for n in (256, 1))
+    args = (sim.controller, sim.clf, sim.cbfs, sim.planner)
+    gp = lambda s, xx, t: bayes_clf_control_gp(*args, lrn.fu_func_gp, s, xx,
+                                               t)
+    cf = lambda s, xx, t: bayes_clf_control(*args, lrn.moments(s, xx), xx, t)
+    (g0, g), wall, counts, _ = _counted(
+        lambda: (gp(st0, x0, 0), gp(st, x, steps)))
+    want = dict.fromkeys(bt.counters(), 0)
+    want["ipm"] = 2
+    c0, c = cf(st0, x0, 0), cf(st, x, steps)
+    sim64 = tu.make_ackermann_tracking_sim(**tu.EXPERIMENTS[name],
+                                           device="cpu", dtype=torch.float64)
+    l64 = sim64.learned_dynamics
+
+    def solve64(s, xx, t):
+        """The closed form in f64, plain, on the CPU: u (B, m)."""
+        s64 = _map(lambda a: (a.double() if a.is_floating_point() else a)
+                   .cpu(), s)
+        xx = xx.double().cpu()
+        return bayes_clf_control(sim64.controller, sim64.clf, sim64.cbfs,
+                                 sim64.planner, l64.moments(s64, xx), xx,
+                                 t)[0]
+
+    u64, u64_0 = solve64(st, x, steps.cpu()), solve64(st0, x0, 0)
+    rel = lambda u, ref: ((u.double().cpu() - ref).abs()
+                          / (1.0 + ref.abs())).amax(-1)
+    q_gp, q_cf = _quantiles(rel(g[0], u64)), _quantiles(rel(c[0], u64))
+    s_gp, s_cf = float(rel(g0[0], u64_0)), float(rel(c0[0], u64_0))
+    tol = lambda a, b: ((a - b).abs() <= 1e-4 + 1e-3 * b.abs()).all(-1)
+    start_ok = (s_gp <= q_cf[1] if lrn.enable_learning
+                else bool(tol(g0[0], c0[0]).all()))
+    within = int(tol(g[0], c[0]).sum())
+    solved = bool((g[1].feasible | ~c[1].feasible).all())
+    ms = {k: _synced_ms(lambda fn=fn, s=s, xx=xx, t=t: fn(s, xx, t))
+          for k, fn, s, xx, t in (("gp B=256", gp, st, x, steps),
+                                     ("closed B=256", cf, st, x, steps),
+                                     ("gp B=1", gp, st0, x0, 0),
+                                     ("closed B=1", cf, st0, x0, 0))}
+    print(f"[{label}] {name} configuration, (4, 4, 4) cold at "
+          f"{sim.controller.socp_iters} iterations: the start u "
+          f"{g0[0][0].tolist()} (closed form {c0[0][0].tolist()}, f64 "
+          f"{u64_0[0].tolist()}; from f64 {s_gp:.3e}, closed form "
+          f"{s_cf:.3e}); on 256 "
+          f"states of the episode: feasible {int(g[1].feasible.sum())} "
+          f"(closed form {int(c[1].feasible.sum())}), within rtol 1e-3 / "
+          f"atol 1e-4 of the closed form's u {within}; distance from the "
+          f"f64 solve, median / p90 / max: GP path {q_gp[0]:.3e} / "
+          f"{q_gp[1]:.3e} / {q_gp[2]:.3e}, closed form {q_cf[0]:.3e} / "
+          f"{q_cf[1]:.3e} / {q_cf[2]:.3e}; ms a step "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f" on {card}; launches {counts} ({want})", flush=True)
+    _require(counts == want, f"{label}: launch counts {counts} != {want}")
+    _require(start_ok, f"{label}: start u {g0[0]} against {c0[0]}")
+    _require(solved, f"{label}: a problem the closed form solves failed")
+    _require(q_gp[0] <= 2.0 * q_cf[0] and q_gp[1] <= 2.0 * q_cf[1],
+             f"{label}: GP path {q_gp} against closed form {q_cf}")
+    return counts
+
+
+def phase_gp(dev, card, pend_out, outcome_outs):
+    """Phase 10: the GP expression path on the card, (a) the CBC2 terms
+    at B = 256, (b) the pendulum episode with closed_form=False, (c)
+    `bayes_clf_control_gp` on the bayes_cbf and the learning
+    configurations.  Returns the launch counts per run."""
+    return {"gp cbc2 terms": _gp_cbc2_terms(dev, card, pend_out),
+            "gp pendulum episode": _gp_pendulum_episode(
+                dev, card, outcome_outs["pendulum_online"]),
+            "gp bayes_clf_control": _gp_bayes_controller(
+                dev, card, "bayes_cbf", outcome_outs["bayes_cbf"]),
+            "gp bayes_clf_control learning": _gp_bayes_controller(
+                dev, card, "learning", outcome_outs["learning"])}
+
+
 def main():
     dev, card = phase_device()
     phase_build()
@@ -2097,9 +2394,12 @@ def main():
         "main": main_rungs, "b": abc["b"][1], "c": abc["c"][1],
         **{f"pendulum {k}": v[1] for k, v in pend.items()}}
     profile_stats = phase_pendulum_profile(dev, px0s)
-    runs.update(phase_outcomes(dev, card))
+    outcome_launches, outcome_outs = phase_outcomes(dev, card)
+    runs.update(outcome_launches)
     runs.update(phase_deterministic(dev, card))
     runs.update(phase_serving(dev, card))
+    runs.update(phase_gp(dev, card, pend["reference schedule"][3],
+                         outcome_outs))
 
     def entry(name, source, replaces, run, stats, counter=None):
         counter = counter or name

@@ -47,10 +47,10 @@ UNICYCLE_RUNS = {
     "no_learning": "unicycle_no_learning_gets_stuck",
 }
 
-def unicycle_run(name, device):
+def unicycle_run(name, device, dtype=torch.float32):
     """(sim, outputs (T, ...)) of one README experiment, seed 0."""
     from bayesian_cbf_tpu_torch.experiments import unicycle as tu
-    return getattr(tu, UNICYCLE_RUNS[name])(device=device)
+    return getattr(tu, UNICYCLE_RUNS[name])(device=device, dtype=dtype)
 
 
 def unicycle_result(name, sim, out):
@@ -71,13 +71,93 @@ def unicycle_result(name, sim, out):
     return res
 
 
-def pendulum_run(device):
+def pendulum_run(device, closed_form=True):
     """(sim, outputs (T, ...)) of one pendulum episode from
-    (7 pi / 12, 0), seed 0."""
+    (7 pi / 12, 0), seed 0; closed_form=False builds its CBC2 cones
+    through the GP expression path."""
     from bayesian_cbf_tpu_torch.experiments import pendulum as tp
     sim = tp.make_pendulum_online_sim(max_train=200, device=device)
+    sim = sim._replace(controller=sim.controller._replace(
+        closed_form=closed_form))
     return sim, tp.run_pendulum_online_learning(
         sim, generator=torch.Generator(device=device).manual_seed(0))
+
+
+def pendulum_prerefit_run(device, closed_form=True, dtype=torch.float32,
+                          delta=0.0, seed=0):
+    """(sim, outputs (T, ...)) of the steps of `pendulum_run`'s episode
+    before its first refit (T = train_every_n_steps + 1), in `dtype` on
+    `device`.  delta > 0 moves each closed-form CBC2 term t to
+    t + delta (1 + |t|) xi, xi uniform on [-1, 1) from a generator seeded
+    with `seed` on `device`: the closed form's cones with their data
+    changed by about delta."""
+    from bayesian_cbf_tpu_torch.control import learned_socp_controller as lsc
+    from bayesian_cbf_tpu_torch.experiments import pendulum as tp
+    sim = tp.make_pendulum_online_sim(max_train=200, device=device,
+                                      dtype=dtype)
+    sim = sim._replace(
+        numSteps=sim.learned.train_every_n_steps + 1,
+        controller=sim.controller._replace(closed_form=closed_form))
+    terms = lsc.cbc2_closed_form_terms
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def moved(*args):
+        (bfe, e), (V, bfv, v), mean, var = terms(*args)
+        mv = lambda t: t + delta * (1.0 + t.abs()) * (2.0 * torch.rand(
+            t.shape, generator=gen, dtype=t.dtype, device=t.device) - 1.0)
+        return (mv(bfe), mv(e)), (mv(V), mv(bfv), mv(v)), mean, var
+
+    if delta > 0:
+        lsc.cbc2_closed_form_terms = moved
+    try:
+        return sim, tp.run_pendulum_online_learning(
+            sim, generator=torch.Generator(device=device).manual_seed(0))
+    finally:
+        lsc.cbc2_closed_form_terms = terms
+
+
+def learner_state_from_episode(lrn, X, U, n):
+    """A learner state for n episodes from one episode's states X (T, n)
+    and controls U (T, m): with learning, fitted (`fit_now_first`) on its
+    first K + 1 steps; else the initial one.  Seed 0 on X's device."""
+    from bayesian_cbf_tpu_torch.models.dynamics import _map
+    gen = torch.Generator(device=X.device).manual_seed(0)
+    st = lrn.init_state(1, gen, X.device, X.dtype)
+    if lrn.enable_learning:
+        for t in range(lrn.max_train + 1):
+            st = lrn.record(st, X[t:t + 1], U[t:t + 1], generator=gen)
+        st = lrn.fit_now_first(st)
+    return _map(lambda a: a.expand(n, *a.shape[1:]).contiguous(), st)
+
+
+def cbc2_term_distance(terms, ref):
+    """Per episode, the largest |t - r| / (1 + |r|) over the CBC2 terms
+    ((bfe, e), (V, bfv, v), mean, var) against ref's, in f64."""
+    flat = lambda t: [t[0][0], t[0][1], t[1][0], t[1][1], t[1][2]]
+    return torch.stack([
+        ((a.double() - r.double()).abs() / (1.0 + r.double().abs()))
+        .reshape(a.shape[0], -1).amax(-1)
+        for a, r in zip(flat(terms), flat(ref))]).amax(0)
+
+
+def pendulum_prerefit_terms(sim, X):
+    """The CBC2 terms at the states X (T, 2) of `pendulum_prerefit_run`'s
+    episode, u0 = 0.5, under the learner state those steps read (the
+    initial one: the posterior first changes at the refit): (GP path,
+    closed form) in X's dtype and the closed form in f64."""
+    from bayesian_cbf_tpu_torch.models.dynamics import _map
+    from bayesian_cbf_tpu_torch.safety import cbc as tcbc
+    lrn, cbf, k_alpha = sim.learned, sim.cbf, sim.controller.k_alpha
+    T = X.shape[0]
+    st = lrn.init_state(1, torch.Generator(device=X.device).manual_seed(0),
+                        X.device, X.dtype)
+    st = _map(lambda a: a.expand(T, *a.shape[1:]).contiguous(), st)
+    st64 = _map(lambda a: a.double() if a.is_floating_point() else a, st)
+    u0 = torch.full((T, 1), 0.5, dtype=X.dtype, device=X.device)
+    closed = lambda s, x, u: tcbc.cbc2_closed_form_terms(
+        cbf, k_alpha, lrn.moment_derivatives(s, x), x, u)
+    return (tcbc.cbc2_gp_terms(cbf, k_alpha, lrn.f_gp_and_fu_gp, st, X, u0),
+            closed(st, X, u0), closed(st64, X.double(), u0.double()))
 
 
 def pendulum_result(out):

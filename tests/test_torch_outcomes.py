@@ -522,3 +522,29 @@ def test_check_outcomes_refuses_cpu():
     assert res.returncode != 0
     assert '"verdicts"' not in res.stdout
     assert "CUDA is not available" in res.stderr
+
+
+def test_pendulum_prerefit_run_moves_only_its_own_terms():
+    """`pendulum_prerefit_run` (the witnesses of chip_smoke.py phase 10)
+    runs the pendulum episode's steps before its first refit; with delta
+    it moves the closed form's CBC2 terms by about delta for that run
+    only: the episode's u moves, the module's function is restored, and
+    an unmoved run afterwards repeats the first.  Its term helper gives
+    the episode's own CBC2 means at u0 (to roundoff: a batch of all the
+    states against one state a step) and a GP path at the closed form's
+    roundoff."""
+    from bayesian_cbf_tpu_torch.control import learned_socp_controller as lsc
+    co = _gate()
+    terms = lsc.cbc2_closed_form_terms
+    sim, base = co.pendulum_prerefit_run("cpu", dtype=torch.float64)
+    assert base.U.shape == (sim.learned.train_every_n_steps + 1, 1)
+    _, moved = co.pendulum_prerefit_run("cpu", dtype=torch.float64,
+                                        delta=1e-3, seed=1)
+    assert lsc.cbc2_closed_form_terms is terms
+    assert float((moved.U - base.U).abs().max()) > 1e-6
+    _, again = co.pendulum_prerefit_run("cpu", dtype=torch.float64)
+    assert torch.equal(again.U, base.U)
+    gp, closed, ref = co.pendulum_prerefit_terms(sim, base.X)
+    np.testing.assert_allclose(closed[2].numpy(),
+                               base.info.cbc_mean[:, 0].numpy(), rtol=1e-14)
+    assert float(co.cbc2_term_distance(gp, ref).max()) < 1e-12

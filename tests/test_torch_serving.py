@@ -382,7 +382,7 @@ def test_pendulum_factory_keeps_row_gated_branch():
     """The pendulum factory turns the serving branch off with continuous
     updates, as JAX's does: its record is the row-gated append (the same
     result with the flag set by hand) and never reads the host; a
-    pendulum sim cannot be served yet (A.5)."""
+    pendulum sim cannot be served, as in the JAX package."""
     sim = tp.make_pendulum_online_sim(max_train=6, continuous_updates=True,
                                       device="cpu", dtype=F64)
     lrn = sim.learned
@@ -410,7 +410,8 @@ def test_pendulum_factory_keeps_row_gated_branch():
     finally:
         td.LearnedShiftInvariantDynamics._serving_update = real
     assert not called
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(NotImplementedError,
+                       match="cannot serve a pendulum sim"):
         CompiledController(sim, [1.0, 0.0], device="cpu")
 
 
