@@ -5,9 +5,10 @@
 
 It runs one of the registered experiments (the four README unicycle
 experiments) through `experiments.harness`, or one of the named runs
-`pendulum_control_online_learning`, `pendulum_control_ground_truth` and
-`car_learn_dynamics`, which print their result as JSON and take --set
-but not --sweep.  Everything runs on the card in float32; --cpu runs on
+(`NAMED`: the pendulum's online learning and ground-truth QP, the car's
+and the pendulum's dynamics learning, the two MVGP-against-CoGP speed
+tests, the Monte-Carlo batch), which print their result as JSON and take
+--set but not --sweep.  Everything runs on the card in float32; --cpu runs on
 the CPU in float64.  Without --cpu and without a CUDA device the command
 raises.
 """
@@ -113,11 +114,36 @@ def _car_learn(device, dtype, **kw):
     return {"rmse": car_learn_dynamics(**kw, device=device, dtype=dtype)[-1]}
 
 
+def _pendulum_learn(device, dtype, **kw):
+    from .experiments.pendulum import learn_dynamics_matrix_vector
+    return learn_dynamics_matrix_vector(**kw, device=device, dtype=dtype)
+
+
+def _speed_test(device, dtype, **kw):
+    from .experiments.pendulum import speed_test_matrix_vector
+    return speed_test_matrix_vector(**kw, device=device, dtype=dtype)
+
+
+def _unicycle_speed_test(device, dtype, **kw):
+    from .experiments.unicycle import unicycle_speed_test
+    return unicycle_speed_test(**kw, device=device, dtype=dtype)
+
+
+def _monte_carlo(device, dtype, **kw):
+    from .experiments.montecarlo import monte_carlo_unicycle
+    stats = monte_carlo_unicycle(**kw, device=device, dtype=dtype)[2]
+    return {k: float(v) for k, v in stats.items()}
+
+
 # the named runs: run(device, dtype, **keywords) -> a JSON-serializable
 # result
 NAMED = {"pendulum_control_online_learning": _pendulum_online,
          "pendulum_control_ground_truth": _pendulum_ground_truth,
-         "car_learn_dynamics": _car_learn}
+         "car_learn_dynamics": _car_learn,
+         "pendulum_learn_dynamics": _pendulum_learn,
+         "speed_test_matrix_vector": _speed_test,
+         "unicycle_speed_test": _unicycle_speed_test,
+         "monte_carlo_unicycle": _monte_carlo}
 
 
 if __name__ == "__main__":

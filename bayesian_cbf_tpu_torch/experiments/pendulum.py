@@ -4,15 +4,19 @@ reference on the learned model, a learned relative-degree-2 CBC SOCP
 keeping theta out of the wedge around pi / 4, and the dynamics (drift
 and actuation) learned from scratch by a full-rank MVGP.  Also the
 ground-truth CLF-CBF QP controller and its episode (start 5 pi / 12, the
-true model), the data samplers of the dynamics-learning experiments and
-their error measure.
+true model), the data samplers of the dynamics-learning experiments,
+their error measure, and the MVGP-against-CoGP experiments: the learning
+error (`learn_dynamics_matrix_vector`) and the posterior's speed
+(`speed_test_matrix_vector`).
 """
 from __future__ import annotations
 
 import math
+import time
 from functools import lru_cache
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..control.learned_socp_controller import (LearnedSOCPControllerConfig,
@@ -21,7 +25,8 @@ from ..control.pendulum_safety import EnergyCLF, RadialCBFRelDegree2
 from ..control.secondary import EpsilonGreedyController, LQRController
 from ..models.dynamics import (LearnedDynState, LearnedShiftInvariantDynamics,
                                PendulumDynamics, ZeroDynamics, where_tree)
-from ..models.mvgp import make_mvgp
+from ..models.cogp import CoGP, make_cogp, make_cogp_diag
+from ..models.mvgp import make_mvgp, make_mvgp_diag
 from ..sim.rollout import _stack_steps, first_episode, fit_segments
 from ..solvers.socp import solve_socp
 
@@ -333,9 +338,189 @@ def sample_pendulum_data(numSteps=2000, dt=1e-2, theta0=3 * math.pi / 4,
 
 def variance_weighted_error(mean_flat, var_flat, true_flat):
     """sqrt of the mean over a test batch of (F_hat - F)^T Var^{-1}
-    (F_hat - F): mean_flat (N D,), var_flat (N, D, D), true_flat (N, D)."""
+    (F_hat - F): mean_flat (N D,), var_flat (N, D, D), true_flat (N, D).
+    NaN when a block of var_flat is not positive definite."""
     N, D = true_flat.shape
     diff = mean_flat.reshape(N, D) - true_flat
-    L = torch.linalg.cholesky(var_flat)
+    L, info = torch.linalg.cholesky_ex(var_flat)
     sols = torch.cholesky_solve(diff[..., None], L)[..., 0]
-    return torch.sqrt(torch.sum(diff * sols) / N)
+    errs = torch.where(info == 0, torch.sum(diff * sols, -1), math.nan)
+    return torch.sqrt(torch.sum(errs) / N)
+
+
+_REGRESSORS = {
+    "matrix": make_mvgp,
+    "matrixdiag": make_mvgp_diag,
+    "vector": make_cogp,
+    "vectordiag": make_cogp_diag,
+}
+
+
+def _block_diag_vars(var_full, b):
+    """The (b, D, D) diagonal blocks of a (b D, b D) covariance, each plus
+    1e-9 I (f64) or 1e-4 I (f32: posteriors there have a ~1e-6 noise floor
+    on near-collapsed variances) for the weighted-error solve."""
+    D = var_full.shape[0] // b
+    blocks = torch.diagonal(var_full.reshape(b, D, b, D), dim1=0, dim2=2)
+    jit = 1e-9 if var_full.dtype == torch.float64 else 1e-4
+    return blocks.permute(2, 0, 1) + jit * torch.eye(
+        D, dtype=var_full.dtype, device=var_full.device)
+
+
+def _init_params(gp, name, params0, seed, device, dtype):
+    """Initial hyperparameters of regressor `name`: params0[name] when
+    given, else drawn from a generator seeded with `seed`; an MVGP's with
+    the episode axis of 1."""
+    if params0 is not None:
+        return params0[name]
+    generator = torch.Generator(device=device).manual_seed(seed)
+    if isinstance(gp, CoGP):
+        return gp.init_params(generator, device, dtype)
+    return gp.init_params(1, generator, device, dtype)
+
+
+def _fit(gp, X, U, Xdot, params, training_iter):
+    """(fitted params, training data) of one regressor on rows (k, ...);
+    an MVGP's carry the episode axis of 1."""
+    if isinstance(gp, CoGP):
+        data = gp.make_data(X, U, Xdot)
+    else:
+        data = gp.make_data(X[None], U[None], Xdot[None])
+    return gp.fit(params, data, training_iter=training_iter), data
+
+
+def _posterior(gp, params, data, Xtest, cache=None):
+    """predict_fullmat at Xtest (b, n) without the episode axis, after
+    `refresh_cache` unless a cache is given."""
+    with torch.no_grad():
+        if cache is None:
+            cache = gp.refresh_cache(params, data)
+        if isinstance(gp, CoGP):
+            return gp.predict_fullmat(params, data, cache, Xtest)
+        mean, var = gp.predict_fullmat(params, data, cache, Xtest[None])
+        return mean[0], var[0]
+
+
+def _pendulum_F_true(Xtest):
+    """vec F^T of the true pendulum at states (b, 2): (b, (1+m) n)."""
+    return PendulumDynamics().F_func(Xtest).transpose(-1, -2).reshape(
+        Xtest.shape[0], -1)
+
+
+def _synchronize(t):
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def speed_test_matrix_vector(max_train_list=(256, 320, 384, 512),
+                             grid=21, ntimes=10, repeat=5,
+                             training_iter=50, seed=0,
+                             regressors=("matrix", "vector",
+                                         "matrixdiag", "vectordiag"),
+                             data=None, Xtest=None, Ftrue=None,
+                             x_dim=2, u_dim=1, params0=None,
+                             params_out=None, device="cuda",
+                             dtype=torch.float32):
+    """The posterior's speed, MVGP O(k^3) against CoGP O(k^3 n^3): for
+    each regressor and training size k, fit on k random rows, then time
+    `refresh_cache` + `predict_fullmat` over a test set, `repeat` times
+    `ntimes` calls, each repeat ending with a device synchronize.
+    Returns {regressor: {k: {"elapsed": best s per call, "error": the
+    variance-weighted error of the last call}}}.
+
+    By default on a 2048-step pendulum trajectory (`sample_pendulum_data`
+    from a generator seeded with `seed`) over a grid x grid lattice of the
+    visited (theta, omega); pass data=(X, U, Xdot), Xtest, Ftrue (b,
+    (1+m) n), x_dim and u_dim for another system (moved to `device` in
+    `dtype`).  Rows come from np.random.default_rng(seed), one
+    permutation per (regressor, k) in that order.  Each fit starts from
+    hyperparameters drawn from a generator seeded with `seed`, or from
+    params0[regressor]; a dict passed as params_out receives
+    params_out[regressor][k] = (initial, fitted)."""
+    if data is None:
+        X, U, Xdot = sample_pendulum_data(
+            numSteps=2048, generator=torch.Generator(device=device)
+            .manual_seed(seed), device=device, dtype=dtype)
+        Xn = X.cpu().numpy()
+        th = np.linspace(Xn[:, 0].min(), Xn[:, 0].max(), grid)
+        om = np.linspace(Xn[:, 1].min(), Xn[:, 1].max(), grid)
+        Xtest = torch.tensor(np.stack(np.meshgrid(th, om), -1).reshape(-1, 2),
+                             dtype=dtype, device=device)
+        Ftrue = _pendulum_F_true(Xtest)
+    else:
+        X, U, Xdot, Xtest, Ftrue = (
+            torch.as_tensor(a).to(device=device, dtype=dtype)
+            for a in (*data, Xtest, Ftrue))
+    rng = np.random.default_rng(seed)
+    results = {}
+    for name in regressors:
+        gp = _REGRESSORS[name](x_dim, u_dim)
+        results[name] = {}
+        for k in max_train_list:
+            idx = torch.as_tensor(rng.permutation(X.shape[0])[:k],
+                                  device=X.device)
+            params = _init_params(gp, name, params0, seed, device, dtype)
+            fitted, d = _fit(gp, X[idx], U[idx], Xdot[idx], params,
+                             training_iter)
+            if params_out is not None:
+                params_out.setdefault(name, {})[k] = (params, fitted)
+            mean, var = _posterior(gp, fitted, d, Xtest)     # warm-up
+            _synchronize(var)
+            times = []
+            for _ in range(repeat):
+                t0 = time.perf_counter()
+                for _ in range(ntimes):
+                    mean, var = _posterior(gp, fitted, d, Xtest)
+                _synchronize(var)
+                times.append((time.perf_counter() - t0) / ntimes)
+            err = float(variance_weighted_error(
+                mean, _block_diag_vars(var, Xtest.shape[0]), Ftrue))
+            results[name][k] = {"elapsed": min(times), "error": err}
+    return results
+
+
+def learn_dynamics_matrix_vector(max_train=120, training_iter=50,
+                                 n_test=128, tries=8, seed=0, data=None,
+                                 params0=None, params_out=None,
+                                 device="cuda", dtype=torch.float32):
+    """The MVGP-against-CoGP learning error: fit "matrix" and "vector" on
+    `max_train` random rows of a 2048-step pendulum trajectory and return
+    {"matrix": err, "vector": err}, each the median variance-weighted
+    error over `tries` random subsets of `n_test` held-out rows.
+
+    The rows come from np.random.default_rng(seed); the trajectory from
+    `sample_pendulum_data` with a generator seeded with `seed`, or
+    data=(X, U, Xdot) (moved to `device` in `dtype`).  Each fit starts
+    from hyperparameters drawn from a generator seeded with `seed`, or
+    from params0[regressor]; a dict passed as params_out receives each
+    regressor's (initial, fitted) hyperparameters."""
+    if data is None:
+        X, U, Xdot = sample_pendulum_data(
+            numSteps=2048, generator=torch.Generator(device=device)
+            .manual_seed(seed), device=device, dtype=dtype)
+    else:
+        X, U, Xdot = (torch.as_tensor(a).to(device=device, dtype=dtype)
+                      for a in data)
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(X.shape[0])
+    tr = torch.as_tensor(idx[:max_train], device=X.device)
+    te = idx[max_train:]
+    out = {}
+    for name in ("matrix", "vector"):
+        gp = _REGRESSORS[name](2, 1)
+        params = _init_params(gp, name, params0, seed, device, dtype)
+        fitted, d = _fit(gp, X[tr], U[tr], Xdot[tr], params, training_iter)
+        if params_out is not None:
+            params_out[name] = (params, fitted)
+        with torch.no_grad():
+            cache = gp.refresh_cache(fitted, d)
+        errs = []
+        for _ in range(tries):
+            sub = torch.as_tensor(rng.choice(te, size=n_test, replace=False),
+                                  device=X.device)
+            Xtest = X[sub]
+            mean, var = _posterior(gp, fitted, d, Xtest, cache)
+            errs.append(float(variance_weighted_error(
+                mean, _block_diag_vars(var, n_test), _pendulum_F_true(Xtest))))
+        out[name] = float(np.median(errs))
+    return out

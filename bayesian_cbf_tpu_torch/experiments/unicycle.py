@@ -11,11 +11,15 @@ The four README experiments (single episodes, dt 0.001, 2000 steps):
     every 400 steps, true L 1 / prior L 12: reaches the goal;
   * unicycle_no_learning_gets_stuck -- the same with a refit every 2000
     steps, none within the horizon: stuck.
+
+Also the unicycle twin of the MVGP-against-CoGP speed test
+(`unicycle_speed_test`).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..control.bayes_controller import (BayesCLFControllerConfig,
@@ -138,6 +142,38 @@ def unicycle_no_learning_gets_stuck(**kw):
     """A refit every 2000 steps, none within the horizon: gets stuck.
     Keywords as `unicycle_mean_cbf_collides_obstacle`."""
     return _experiment("no_learning", kw)
+
+
+def unicycle_speed_test(max_train_list=(64, 80, 96, 128), ntimes=10,
+                        repeat=5, training_iter=50, seed=0,
+                        regressors=("matrix", "vector", "matrixdiag",
+                                    "vectordiag"), numSteps=512, dt=0.01,
+                        params0=None, device="cuda", dtype=torch.float32):
+    """The speed test of `pendulum.speed_test_matrix_vector` on the
+    unicycle (n = 3, m = 2, D = 9): the data are a `numSteps` Ackermann
+    episode without learning (true and prior L 1, the IPM's (4, 4, 4)
+    cones, seed `seed`), the test points an 11 x 11 x 4 lattice over the
+    visited (x, y, theta), and the truth the Ackermann drive's F.
+    params0: each regressor's initial hyperparameters, as there."""
+    from .pendulum import speed_test_matrix_vector
+    sim = make_ackermann_tracking_sim(numSteps=numSteps, dt=dt,
+                                      enable_learning=False, true_L=1.0,
+                                      mean_L=1.0, device=device, dtype=dtype)
+    out = _run(sim, seed=seed)
+    Xn = out.X.cpu().numpy()
+    g = 11
+    xs = np.linspace(Xn[:, 0].min(), Xn[:, 0].max(), g)
+    ys = np.linspace(Xn[:, 1].min(), Xn[:, 1].max(), g)
+    th = np.linspace(Xn[:, 2].min(), Xn[:, 2].max(), 4)
+    Xtest = torch.tensor(np.stack(np.meshgrid(xs, ys, th), -1).reshape(-1, 3),
+                         dtype=dtype, device=device)
+    Ftrue = AckermannDrive(L=1.0).F_func(Xtest).transpose(-1, -2).reshape(
+        Xtest.shape[0], -1)
+    return speed_test_matrix_vector(
+        max_train_list=max_train_list, ntimes=ntimes, repeat=repeat,
+        training_iter=training_iter, seed=seed, regressors=regressors,
+        data=(out.X, out.U, out.Xdot), Xtest=Xtest, Ftrue=Ftrue, x_dim=3,
+        u_dim=2, params0=params0, device=device, dtype=dtype)
 
 
 def min_obstacle_clearance(sim: UnicycleSim, out: RolloutOutputs):

@@ -2,7 +2,8 @@
 run produced) into the port, and back; and a JAX serving controller's
 carry into the port's.
 
-Every array carries the leading episode axis of the port's tensors.
+Every array of the MVGP and the learner carries the leading episode axis
+of the port's tensors; the CoGP has none.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from .models.cogp import CoGPParams
 from .models.dynamics import LearnedDynState, LearnedShiftInvariantDynamics
 from .models.mvgp import MVGP, MVGPCache, MVGPData, MVGPParams
 
@@ -47,6 +49,18 @@ def mvgp_params_from_numpy(arrays: Mapping[str, np.ndarray], device,
 def mvgp_params_to_numpy(params: MVGPParams) -> dict:
     return {f: getattr(params, f).detach().cpu().numpy()
             for f in MVGPParams._fields}
+
+
+def cogp_params_from_numpy(arrays: Mapping[str, np.ndarray], device,
+                           dtype) -> CoGPParams:
+    """CoGPParams from a mapping of its six field names to arrays."""
+    return CoGPParams(*(_t(arrays[f], device, dtype)
+                        for f in CoGPParams._fields))
+
+
+def cogp_params_to_numpy(params: CoGPParams) -> dict:
+    return {f: getattr(params, f).detach().cpu().numpy()
+            for f in CoGPParams._fields}
 
 
 def learned_state_from_numpy(dyn: LearnedShiftInvariantDynamics,

@@ -509,8 +509,9 @@ class LearnedShiftInvariantDynamics(NamedTuple):
                ) -> LearnedDynState:
         """Push the finite-difference residual of the previous pair into
         the reservoir and remember (x, u).  `j` (B,) int is the reservoir
-        draw, uniform on [0, count_res]; when absent it is drawn from
-        `generator`."""
+        draw, uniform on [0, count_res]; a floating `j` is a uniform r on
+        [0, 1) that becomes the draw floor(r (count_res + 1)); when absent,
+        r is drawn from `generator`."""
         md = self.mean_dynamics
         xdot = (x - state.prev_x) / self.dt
         xprev_si = self._shift_inv(state.prev_x)
@@ -521,10 +522,11 @@ class LearnedShiftInvariantDynamics(NamedTuple):
         cap = self.max_train
         cr = state.count_res
         if j is None:
-            hi = torch.clamp(cr + 1, min=1).to(x.dtype)
-            r = torch.rand(cr.shape, generator=generator, dtype=x.dtype,
+            j = torch.rand(cr.shape, generator=generator, dtype=x.dtype,
                            device=x.device)
-            j = torch.minimum(torch.floor(r * hi).to(torch.int32),
+        if j.is_floating_point():
+            hi = torch.clamp(cr + 1, min=1).to(j.dtype)
+            j = torch.minimum(torch.floor(j * hi).to(torch.int32),
                               (hi - 1).to(torch.int32))
         j = j.to(cr.dtype)
         slot = torch.where(cr < cap, cr, j)

@@ -33,6 +33,70 @@ def _eye_like(n, t):
     return torch.eye(n, dtype=t.dtype, device=t.device)
 
 
+def adam_fit(loss_fn, params, training_iter: int, lr: float = 0.1,
+             batched: bool = True):
+    """Minimize loss_fn(params) with the fits' optax chain:
+    scale_by_adam -> piecewise_constant_schedule (x0.1 at 30/60/80/90% of
+    the budget) -> scale(-1), parameters clipped to +-60, and a step
+    rejected (with its Adam state rolled back) when the loss, the gradient
+    or the new parameters are not finite.  `params` is a NamedTuple of
+    tensors.  batched: every leaf has a leading episode axis, loss_fn
+    returns one loss per episode (B,), and the steps are taken and
+    rejected per episode; else loss_fn returns a scalar."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    boundaries = sorted({int(f * training_iter): 0.1
+                         for f in (0.3, 0.6, 0.8, 0.9)}.items())
+    p = [a.detach() for a in params]
+    mu = [torch.zeros_like(a) for a in p]
+    nu = [torch.zeros_like(a) for a in p]
+    lead = 1 if batched else 0
+    batch = p[0].shape[:lead]
+    dtype = p[0].dtype
+    count = torch.zeros(batch, dtype=torch.int32, device=p[0].device)
+
+    def per_ep(mask_b, a):
+        return mask_b.reshape(mask_b.shape + (1,) * (a.ndim - lead))
+
+    def all_finite(a):
+        f = torch.isfinite(a)
+        return f.flatten(lead).all(-1) if f.ndim > lead else f
+
+    for _ in range(training_iter):
+        leaves = [a.clone().requires_grad_(True) for a in p]
+        with torch.enable_grad():
+            loss = loss_fn(type(params)(*leaves))
+            grads = torch.autograd.grad(loss.sum(), leaves)
+        loss = loss.detach()
+        count_inc = count + 1
+        cf = count_inc.to(dtype)
+        bc1 = 1 - torch.pow(torch.full_like(cf, b1), cf)
+        bc2 = 1 - torch.pow(torch.full_like(cf, b2), cf)
+        step = torch.full(batch, lr, dtype=dtype, device=cf.device)
+        for threshold, scale in boundaries:
+            ind = torch.clamp(torch.sign(
+                (threshold - count).to(dtype)), min=0.0)
+            step = step * ind + (1 - ind) * scale * step
+        ok = torch.isfinite(loss)
+        new = []
+        for a, g, m_, v_ in zip(p, grads, mu, nu):
+            m_n = (1 - b1) * g + b1 * m_
+            v_n = (1 - b2) * g ** 2 + b2 * v_
+            upd = ((m_n / per_ep(bc1, m_n))
+                   / (torch.sqrt(v_n / per_ep(bc2, v_n)) + eps))
+            upd = -(per_ep(step, upd) * upd)
+            a_n = torch.clamp(a + upd, -60.0, 60.0)
+            new.append((a_n, m_n, v_n))
+            ok = ok & all_finite(g) & all_finite(a_n)
+        p = [torch.where(per_ep(ok, a), a_n, a)
+             for a, (a_n, _, _) in zip(p, new)]
+        mu = [torch.where(per_ep(ok, m_), m_n, m_)
+              for m_, (_, m_n, _) in zip(mu, new)]
+        nu = [torch.where(per_ep(ok, v_), v_n, v_)
+              for v_, (_, _, v_n) in zip(nu, new)]
+        count = torch.where(ok, count_inc, count)
+    return type(params)(*p)
+
+
 class MVGPParams(NamedTuple):
     """Trainable hyperparameters, each with a leading episode axis.
 
@@ -239,61 +303,9 @@ class MVGP(NamedTuple):
 
     def fit(self, params: MVGPParams, data: MVGPData,
             training_iter: int = 50, lr: float = 0.1) -> MVGPParams:
-        """Adam on the negative MLL, per episode: the optax chain
-        scale_by_adam -> piecewise_constant_schedule (x0.1 at 30/60/80/90%)
-        -> scale(-1), parameters clipped to +-60, and a step rejected per
-        episode (with its Adam state rolled back) when the loss, the
-        gradient or the new parameters are not finite."""
-        b1, b2, eps = 0.9, 0.999, 1e-8
-        boundaries = sorted({int(f * training_iter): 0.1
-                             for f in (0.3, 0.6, 0.8, 0.9)}.items())
-        p = [a.detach() for a in params]
-        mu = [torch.zeros_like(a) for a in p]
-        nu = [torch.zeros_like(a) for a in p]
-        batch = p[0].shape[0]
-        dtype = p[0].dtype
-        count = torch.zeros((batch,), dtype=torch.int32, device=p[0].device)
-
-        def per_ep(mask_b, a):
-            return mask_b.reshape(mask_b.shape + (1,) * (a.ndim - 1))
-
-        def all_finite(a):
-            return torch.isfinite(a).reshape(a.shape[0], -1).all(-1)
-
-        for _ in range(training_iter):
-            leaves = [a.clone().requires_grad_(True) for a in p]
-            with torch.enable_grad():
-                loss = -self.mll(MVGPParams(*leaves), data)
-                grads = torch.autograd.grad(loss.sum(), leaves)
-            loss = loss.detach()
-            count_inc = count + 1
-            cf = count_inc.to(dtype)
-            bc1 = 1 - torch.pow(torch.full_like(cf, b1), cf)
-            bc2 = 1 - torch.pow(torch.full_like(cf, b2), cf)
-            step = torch.full((batch,), lr, dtype=dtype, device=cf.device)
-            for threshold, scale in boundaries:
-                ind = torch.clamp(torch.sign(
-                    (threshold - count).to(dtype)), min=0.0)
-                step = step * ind + (1 - ind) * scale * step
-            ok = torch.isfinite(loss)
-            new = []
-            for a, g, m_, v_ in zip(p, grads, mu, nu):
-                m_n = (1 - b1) * g + b1 * m_
-                v_n = (1 - b2) * g ** 2 + b2 * v_
-                upd = ((m_n / per_ep(bc1, m_n))
-                       / (torch.sqrt(v_n / per_ep(bc2, v_n)) + eps))
-                upd = -(per_ep(step, upd) * upd)
-                a_n = torch.clamp(a + upd, -60.0, 60.0)
-                new.append((a_n, m_n, v_n))
-                ok = ok & all_finite(g) & all_finite(a_n)
-            p = [torch.where(per_ep(ok, a), a_n, a)
-                 for a, (a_n, _, _) in zip(p, new)]
-            mu = [torch.where(per_ep(ok, m_), m_n, m_)
-                  for m_, (_, m_n, _) in zip(mu, new)]
-            nu = [torch.where(per_ep(ok, v_), v_n, v_)
-                  for v_, (_, _, v_n) in zip(nu, new)]
-            count = torch.where(ok, count_inc, count)
-        return MVGPParams(*p)
+        """Adam on the negative MLL, per episode (`adam_fit`)."""
+        return adam_fit(lambda p: -self.mll(p, data), params, training_iter,
+                        lr, batched=True)
 
     # ---------------------------------------------------------- posterior
 

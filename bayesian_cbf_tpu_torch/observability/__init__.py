@@ -1,1 +1,2 @@
-"""Metrics logging, config dumps and checkpoints."""
+"""Metrics logging, config dumps, checkpoints and self-triggered
+intervals."""

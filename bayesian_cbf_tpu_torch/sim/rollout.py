@@ -168,7 +168,8 @@ def simulate_unicycle_batch(sim: UnicycleSim, x0s: torch.Tensor,
 
     generator: the source of the initial weights and the reservoir draws.
     state0: an initial learner state to start from instead of a fresh one.
-    draws: (T, B) int reservoir draws to use instead of `generator`."""
+    draws: (T, B) reservoir draws to use instead of `generator`: ints, or
+    uniforms that the learner's `record` turns into draws."""
     return _rollout(sim, x0s, generator, state0, draws)[0]
 
 
@@ -187,7 +188,8 @@ def simulate_unicycle_with_state(sim: UnicycleSim, x0,
     generator: the initial weights and the reservoir draws (default: a
     generator seeded with 0 on the planner's device).  state0: an initial
     learner state (episode axis 1) instead of a fresh one.  draws: (T,)
-    int reservoir draws to use instead of `generator`'s."""
+    reservoir draws to use instead of `generator`'s, as `record` takes
+    them."""
     p0 = sim.planner.p0
     x0s = torch.as_tensor(x0, dtype=p0.dtype, device=p0.device)[None]
     if generator is None:

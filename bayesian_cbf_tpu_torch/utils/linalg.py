@@ -30,7 +30,22 @@ def psd_cholesky(K: torch.Tensor, init_jitter: float = 1e-6,
     jitters 0, init_jitter scale, ..., init_jitter growth^(num_tries-1)
     scale (scale = max(mean |diag K|, 1) per matrix) whose factorization
     succeeds and is finite.  Returns (K + jitter I, L) for that rung; where
-    no rung succeeds, the unjittered K and L = 0."""
+    no rung succeeds, the unjittered K and L = 0.
+
+    All rungs are factored at once without autograd, and the chosen
+    rung's factor is taken from that batch.  When K needs a gradient, the
+    batch is factored once more with every rung but the chosen one
+    replaced by the identity, so the gradient flows through the chosen
+    rung only (a failed rung's factor is unspecified, and a gradient
+    through it would be too) and the chosen rung is factored by the same
+    batched routine that accepted it (on a card the batched and the
+    single-matrix Cholesky may disagree on a matrix at the edge of
+    definiteness); a matrix whose chosen rung fails there counts as
+    factored by no rung.  Each call adds its matrices per accepted rung to
+    `psd_cholesky.rungs`, a (num_tries + 2,) integer tensor on K's device
+    whose last entry counts the matrices no rung factored (None until the
+    first call), without a host sync: set it to None before a run and read
+    it after."""
     K, diag_scale = _sym_scale(K)
     n = K.shape[-1]
     eye = torch.eye(n, dtype=K.dtype, device=K.device)
@@ -38,12 +53,32 @@ def psd_cholesky(K: torch.Tensor, init_jitter: float = 1e-6,
         num_tries, dtype=K.dtype, device=K.device)])
     jit = jit.reshape((-1,) + (1,) * diag_scale.ndim)
     Ks = K + (jit * diag_scale)[..., None, None] * eye      # (R, ..., n, n)
-    Ls, info = torch.linalg.cholesky_ex(Ks)
-    ok = (info == 0) & torch.isfinite(Ls).all(-1).all(-1)
-    Ls = torch.where(ok[..., None, None], Ls, torch.zeros_like(Ls))
-    first = torch.argmax(ok.to(torch.int8), dim=0)          # first ok rung
+    with torch.no_grad():
+        Ls, info = torch.linalg.cholesky_ex(Ks)
+        ok = (info == 0) & torch.isfinite(Ls).all(-1).all(-1)
+        first = torch.argmax(ok.to(torch.int8), dim=0)      # first ok rung
+        found = ok.any(0)
+    if torch.is_grad_enabled() and K.requires_grad:
+        rungs = torch.arange(num_tries + 1, device=K.device).reshape(jit.shape)
+        chosen = (rungs == first) & found
+        Ls, info = torch.linalg.cholesky_ex(
+            torch.where(chosen[..., None, None], Ks, eye))
+        found = found & ((info == 0) & torch.isfinite(
+            Ls.detach()).all(-1).all(-1) | ~chosen).all(0)
     idx = first[None, ..., None, None].expand((1,) + Ks.shape[1:])
-    return torch.gather(Ks, 0, idx)[0], torch.gather(Ls, 0, idx)[0]
+    rung = torch.where(found, first, num_tries + 1)
+    counts = (rung.reshape(-1, 1) == torch.arange(
+        num_tries + 2, device=K.device)).sum(0)
+    seen = psd_cholesky.rungs
+    psd_cholesky.rungs = counts if seen is None \
+        else seen + counts.to(seen.device)
+    found = found[..., None, None]
+    L = torch.gather(Ls, 0, idx)[0]
+    return (torch.where(found, torch.gather(Ks, 0, idx)[0], K),
+            torch.where(found, L, torch.zeros_like(L)))
+
+
+psd_cholesky.rungs = None
 
 
 def psd_clamp_eigh(K: torch.Tensor, eps: float = 0.0) -> torch.Tensor:

@@ -59,7 +59,7 @@ Phases (each raises on failure; nothing is caught):
   6. pendulum -- the batched pendulum online-learning loop (B=256, K=200,
                  250 steps, dt 2e-3, bench.py's two configurations:
                  continuous rank-1 updates with sparse refits, and the
-                 reference schedule), cold and warm like main, with launch
+                 reference schedule), one cold rollout each, with launch
                  counts, the outcome gates of scripts/check_outcomes.py,
                  the accepted rungs, and ms and device operations per step.
   7. outcomes -- the four README unicycle experiments, the chance-
@@ -110,6 +110,24 @@ Phases (each raises on failure; nothing is caught):
                  median and p90 distance from an f64 solve within 2x the
                  closed form's); ms a step of each path beside the closed
                  form's.
+ 11. CoGP and Monte-Carlo -- (a) kernels 1 and 2 at (1, n) for the MVGP
+                 fits' n = 120, 256, 320, 384, 512 (the B = 1 checks of
+                 phase 3) and at (1024, 64), the IPM (4, 4, 4) on the
+                 Monte-Carlo's 1024 step-0 problems and on 1027 random
+                 ones, each against its plain version; (b)
+                 `learn_dynamics_matrix_vector` at its defaults in f32 on
+                 the card and in f64 on the host from the same data and
+                 initial weights (finite, fits moved, f32 within 2x of
+                 f64); (c) `speed_test_matrix_vector` and
+                 `unicycle_speed_test` at their defaults: each (k,
+                 regressor)'s time and error, finite, the MVGP's time over
+                 the CoGP's; (d) `monte_carlo_unicycle` at its defaults
+                 (1024 x 500): no collision, feasible fraction >= 0.95, and
+                 its console entry in a subprocess; (e)
+                 `trigger_analysis_learning_run`: the learning_passes
+                 verdict, its sweep again in f64 on the host (medians of
+                 tau and Lfh within 1e-3).  Launch counts held to the
+                 schedule, the CoGP's accepted jitter rungs counted.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -228,6 +246,12 @@ def _device_ms(fn, name, reps):
     return sum(e.device_time for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and name in e.name) / 1e3 / reps
+
+
+def _ms_text(ms):
+    """A device time for a report line: 0 where the profiler recorded
+    none (it has, late in a long run) is not a measurement."""
+    return f"{ms:.4f} ms" if ms else "not measured"
 
 
 def _trajectory_grams(B, k, seed, step=0.02, nug=2.5e-4):
@@ -410,7 +434,7 @@ def _check_chol_kernels_b1(dev, n=200):
         print(f"[{key} B=1] trajectory Gram (1, {n}): finite={finite} {bars}; "
               f"SPD: max abs err vs plain {err:.3e}, relative {rel:.3e}; "
               f"bits of the same matrix in a launch over 256: {same}; kernel "
-              f"{ms:.4f} ms per call, {device_ms:.4f} ms of device time per "
+              f"{ms:.4f} ms per call, {_ms_text(device_ms)} of device time per "
               f"launch, plain {plain_ms:.3f} ms, library {library_ms} ms, "
               f"bound {bound['bound_ms']:.6f} ms ({bound['bound_by']})",
               flush=True)
@@ -418,7 +442,7 @@ def _check_chol_kernels_b1(dev, n=200):
         _require(rel < 1e-4, f"{key} B=1 disagrees with plain: {rel}")
         _require(all(same.values()),
                  f"{key} B=1: other bits than in a batched launch: {same}")
-        out[key] = dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+        out[key] = dict(max_abs_err=err, ms=ms, device_ms=device_ms or None,
                         plain_ms=plain_ms, library_ms=library_ms, **bound)
     return out
 
@@ -780,10 +804,10 @@ def _check_ipm_b1(dev, label, real, dims):
     bound = _ipm_bound(1, real[1].shape[3], dims)
     print(f"{tag} {n} problems launched one at a time: the bits of the "
           f"batched launch; one problem, 25 iterations: kernel {ms:.4f} ms "
-          f"per call, {device_ms:.4f} ms of device time per launch, plain "
+          f"per call, {_ms_text(device_ms)} of device time per launch, plain "
           f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.6f} ms on cone "
           f"dimensions {dims} ({bound['bound_by']})", flush=True)
-    return dict(max_abs_err=worst_err, ms=ms, device_ms=device_ms,
+    return dict(max_abs_err=worst_err, ms=ms, device_ms=device_ms or None,
                 plain_ms=plain_ms, library_ms=None, **bound)
 
 
@@ -988,7 +1012,7 @@ def _check_gram_kernel(dev):
         plain_ms = _cuda_ms(lambda: gm.fused_gram_kb_plain(*args, 1e-6), 20)
         bound = _gram_bound(B, K, n, mh)
         print(f"[gram] ({B}, {K}, n={n}, 1+m={mh}): kernel {ms:.4f} ms per "
-              f"call, {device_ms:.4f} ms of device time per launch, plain "
+              f"call, {_ms_text(device_ms)} of device time per launch, plain "
               f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']})", flush=True)
         stats[(B, K, n)] = dict(max_abs_err=err, ms=ms, device_ms=device_ms,
@@ -1084,7 +1108,7 @@ def _check_sweep_kernel(dev):
         # the same function as kernel 1, bounded as a Cholesky route does it
         bound = _kinv_logdet_bound(256, n)
         print(f"[sweep] (256, {n}) one sweep: register kernel (instance "
-              f"{instance}) {ms:.4f} ms per call ({device_ms:.4f} ms of "
+              f"{instance}) {ms:.4f} ms per call ({_ms_text(device_ms)} of "
               f"device time), event kernel {events_ms:.4f} ms, "
               f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
               f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); bits equal "
@@ -1266,7 +1290,7 @@ def _check_cholsolve_kernels(dev):
         for name, t, b, err in (("cholsolve_logdet", t6, b6, err6),
                                 ("solve_with_factor", t7, b7, err7)):
             print(f"[{name}] ({B}, {n}, {r}): kernel {t['ms']:.4f} ms per "
-                  f"call, {t['device_ms']:.4f} ms of device time per launch, "
+                  f"call, {_ms_text(t['device_ms'])} of device time per launch, "
                   f"plain {t['plain_ms']:.3f} ms, library "
                   f"{t['library_ms']:.3f} ms, bound {b['bound_ms']:.4f} ms "
                   f"({b['bound_by']})", flush=True)
@@ -1498,15 +1522,14 @@ def phase_fit_timing(dev, out, configs):
 
 def run_pendulum(dev, card, label):
     """The pendulum batch in a configuration of bench_torch's
-    PENDULUM_CONFIGS through its protocol (a cold rollout, then a warm one
-    of the same inputs, with equal outcomes or it raises): launch counts,
+    PENDULUM_CONFIGS through its protocol (one cold rollout): launch counts,
     finiteness, the outcome gates of scripts/check_outcomes.py
     (pendulum_batched_safe and pendulum_batched_cu_safe, with feasible >=
     0.95 for both).  Returns the launch counts, the accepted rungs and
     the walls with the outcomes, and the last rollout's output."""
     tag = f"pendulum {label}"
     print(f"[{tag}] {bt.PENDULUM_CONFIGS[label]}", flush=True)
-    record = bt.run_protocol(tag, dev, reps=1, card=card)
+    record = bt.run_protocol(tag, dev, reps=0, card=card)
     _check_rollouts(tag, record, warm_start=False)
     gates = record["outcomes"]
     print(f"[{tag}] outcomes {gates}", flush=True)
@@ -1515,10 +1538,9 @@ def run_pendulum(dev, card, label):
     _require(not record["gate_failures"],
              f"{tag}: outcome gate failed: {record['gate_failures']}")
     B, T = record["batch"], record["episode_steps"]
-    cold, warm_s = record["first_wall_s"], record["walls_s"][0]
+    cold = record["first_wall_s"]
     return record["launches"], record["refresh_rungs"], dict(
-        wall_s=cold, steps_per_s=B * T / cold, warm_wall_s=warm_s,
-        warm_steps_per_s=B * T / warm_s, **gates), record["out"]
+        wall_s=cold, steps_per_s=B * T / cold, **gates), record["out"]
 
 
 def _aten_ops(fn):
@@ -2316,6 +2338,343 @@ def phase_gp(dev, card, pend_out, outcome_outs):
                 dev, card, "learning", outcome_outs["learning"])}
 
 
+# ---- phase 11: MVGP against CoGP, the Monte-Carlo batch ---------------------
+
+# the fit kernels' orders in this phase's MVGP fits at B = 1: the learning
+# comparison's 120 and the pendulum speed test's training sizes
+MVGP_B1_ORDERS = (120, 256, 320, 384, 512)
+
+
+def _check_chol_kernels_wide(dev, B=1024, n=64):
+    """Kernels 1 and 2 at the Monte-Carlo's (1024, 64): the batched checks'
+    bars on trajectory Grams, kernel and plain; agreement with plain on
+    SPD matrices; the times of the kernel, plain and the library call, and
+    the bound."""
+    from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
+    f64 = torch.float64
+    K = torch.tensor(_trajectory_grams(B, n, seed=n), dtype=torch.float32,
+                     device=dev)
+    S = torch.tensor(_spd(B, n, 3), dtype=torch.float32, device=dev)
+    K64, eye = K.double(), torch.eye(n, dtype=f64, device=dev)
+    ld64 = torch.linalg.slogdet(K64)[1]
+    out = {}
+    for key, fn, plain in (("kinv_logdet", ck.kinv_logdet,
+                            ck.kinv_logdet_plain),
+                           ("chol_linv", ck.chol_linv, ck.chol_linv_plain)):
+        for name, f in (("kernel", fn), ("plain", plain)):
+            a, b = f(K)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(a).all() & torch.isfinite(b).all())
+            if key == "kinv_logdet":
+                resid = float((a.double() @ K64 - eye).abs().max())
+                lderr = float((b.double() - ld64).abs().max())
+                bars = (f"max|Kinv K - I| {resid:.3e}, logdet err "
+                        f"{lderr:.3e}")
+                ok = finite and resid < 5e-2 and lderr < 0.5
+            else:
+                L = a.double()
+                r_inv = float((b.double() @ L - eye).abs().max())
+                r_fac = float((L @ L.transpose(-1, -2) - K64).abs().max()
+                              / K64.abs().max())
+                bars = (f"max|Linv L - I| {r_inv:.3e}, max|LL^T-K|/max|K| "
+                        f"{r_fac:.3e}")
+                ok = finite and r_inv < 5e-2 and r_fac < 1e-5
+            print(f"[{key} {name}] trajectory Grams ({B}, {n}): "
+                  f"finite={finite} {bars}", flush=True)
+            _require(ok, f"{key} {name} ({B}, {n}): {bars}")
+        got, want = fn(S), plain(S)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        rel = max(float((g - w).abs().max() / w.abs().max())
+                  for g, w in zip(got, want))
+        ms = _cuda_ms(lambda: fn(K), 20)
+        plain_ms = _cuda_ms(lambda: plain(K), 20)
+        if key == "kinv_logdet":
+            bound = _kinv_logdet_bound(B, n)
+            library_ms = _cuda_ms(lambda: torch.linalg.inv_ex(K), 20)
+        else:
+            bound, library_ms = _chol_linv_bound(B, n), None
+        print(f"[{key}] ({B}, {n}): SPD max abs err vs plain {err:.3e}, "
+              f"relative {rel:.3e}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {library_ms} ms, bound "
+              f"{bound['bound_ms']:.5f} ms ({bound['bound_by']})",
+              flush=True)
+        _require(rel < 1e-4, f"{key} ({B}, {n}) disagrees with plain: {rel}")
+        out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=library_ms, **bound)
+    return out
+
+
+def _monte_carlo_x0s(dev, n=1024, seed=0, start_noise=0.05):
+    """`monte_carlo_unicycle`'s perturbed starts (its first draws)."""
+    from bayesian_cbf_tpu_torch.experiments.unicycle import STATE_START
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    start = torch.tensor(STATE_START, dtype=torch.float32, device=dev)
+    return start[None] + start_noise * torch.randn(
+        (n, 3), generator=gen, dtype=torch.float32, device=dev)
+
+
+def _monte_carlo_sim(dev):
+    """`monte_carlo_unicycle`'s experiment at its defaults."""
+    from bayesian_cbf_tpu_torch.experiments import unicycle as tu
+    return tu.make_ackermann_tracking_sim(numSteps=500, dt=0.004,
+                                          max_train=64, training_iter=30,
+                                          device=dev)
+
+
+def _phase11_kernels(dev, cones):
+    """(a) Kernels 1 and 2 at (1, n) for the MVGP fits' orders and at
+    (1024, 64), the IPM at (4, 4, 4) on the Monte-Carlo's 1024 step-0
+    problems, each against its plain version."""
+    chol = {f"b1_k{n}": _check_chol_kernels_b1(dev, n=n)
+            for n in MVGP_B1_ORDERS}
+    chol["b1024_k64"] = _check_chol_kernels_wide(dev)
+    real = list(_step0_cones(dev, _monte_carlo_x0s(dev), 0,
+                             _monte_carlo_sim(dev), want_dims=(4, 4, 4, 4)))
+    ipm = _check_ipm_kernel(dev, "(4, 4, 4) B=1024", cones(1024, 35), real,
+                            cones(1027, 36), (4, 4, 4, 4))
+    return chol, ipm
+
+
+def _moved(p0, p1):
+    """The least |change| over the lengthscales of a fit (an MVGP's carry
+    the episode axis)."""
+    return float((p1.raw_lengthscale - p0.raw_lengthscale).abs().min())
+
+
+def _cast(params, device, dtype):
+    return type(params)(*(a.to(device=device, dtype=dtype) for a in params))
+
+
+def _learn_dynamics(dev, card):
+    """(b) `learn_dynamics_matrix_vector` at its defaults in f32 on the
+    card, then in f64 on the host from the same data and initial
+    hyperparameters: finite errors, moved hyperparameters, each f32 error
+    within 2x of its f64 error.  Returns the card run's launch counts."""
+    from bayesian_cbf_tpu_torch.experiments import pendulum as tp
+    from bayesian_cbf_tpu_torch.models.cogp import make_cogp
+    from bayesian_cbf_tpu_torch.models.mvgp import make_mvgp
+    from bayesian_cbf_tpu_torch.utils import linalg as la
+    f64 = torch.float64
+    cpu_gen = lambda: torch.Generator().manual_seed(0)
+    data = tp.sample_pendulum_data(numSteps=2048, generator=cpu_gen(),
+                                   device="cpu", dtype=f64)
+    init = {"matrix": make_mvgp(2, 1).init_params(1, cpu_gen(), "cpu", f64),
+            "vector": make_cogp(2, 1).init_params(cpu_gen(), "cpu", f64)}
+    fitted = {}
+    la.psd_cholesky.rungs = None
+    got, wall, counts, rungs = _counted(lambda: tp.learn_dynamics_matrix_vector(
+        data=data, params0={k: _cast(p, dev, torch.float32)
+                            for k, p in init.items()},
+        params_out=fitted, device=dev, dtype=torch.float32))
+    cogp_rungs = la.psd_cholesky.rungs.tolist()
+    t0 = time.perf_counter()
+    ref = tp.learn_dynamics_matrix_vector(data=data, params0=init,
+                                          device="cpu", dtype=f64)
+    wall64 = time.perf_counter() - t0
+    moved = {k: _moved(*fitted[k]) for k in fitted}
+    print(f"[learn_dynamics] max_train 120, 50 iterations, 8 tries of 128: "
+          f"f32 on the card MVGP {got['matrix']:.4f}, CoGP "
+          f"{got['vector']:.4f} ({wall:.3f} s on {card}); f64 on the host "
+          f"from the same data and weights MVGP {ref['matrix']:.4f}, CoGP "
+          f"{ref['vector']:.4f} ({wall64:.3f} s); reference 0.659 / 3.436, "
+          f"JAX f64 0.587 / 0.619; least |lengthscale change| {moved}; "
+          f"launches {counts}; MVGP refresh rungs {rungs}; CoGP "
+          f"factorizations per accepted rung {cogp_rungs}", flush=True)
+    for k in ("matrix", "vector"):
+        _require(math.isfinite(got[k]) and math.isfinite(ref[k]),
+                 f"learn_dynamics {k}: errors {got[k]}, {ref[k]}")
+        _require(moved[k] > 1e-3, f"learn_dynamics {k}: the fit did not "
+                 f"move the hyperparameters ({moved[k]})")
+        _require(0.5 * ref[k] <= got[k] <= 2.0 * ref[k],
+                 f"learn_dynamics {k}: f32 {got[k]} not within 2x of f64 "
+                 f"{ref[k]}")
+    want = dict.fromkeys(bt.counters(), 0)
+    want.update(kinv_logdet=50, chol_linv=3)
+    _require(counts == want, f"learn_dynamics: launches {counts} != {want}")
+    return counts
+
+
+def _speed_test_launches(res, repeat=5, ntimes=10, iters=50):
+    """Per MVGP (k, regressor): one fit inverse per Adam iteration, and
+    the three factorizations of a cache refresh in the warm-up and in
+    each timed call."""
+    fits = sum(len(res[k]) for k in ("matrix", "matrixdiag") if k in res)
+    want = dict.fromkeys(bt.counters(), 0)
+    want.update(kinv_logdet=iters * fits,
+                chol_linv=3 * (1 + repeat * ntimes) * fits)
+    return want
+
+
+def _speed_tests(dev, card):
+    """(c) `speed_test_matrix_vector` and `unicycle_speed_test` at their
+    defaults on the card: every time and error finite, the fits moved,
+    each (k, regressor)'s time and error, the MVGP's time over the CoGP's
+    at the largest k; launch counts held to the schedule.  Returns the
+    launch counts of each."""
+    from bayesian_cbf_tpu_torch.experiments import pendulum as tp
+    from bayesian_cbf_tpu_torch.experiments import unicycle as tu
+    from bayesian_cbf_tpu_torch.utils import linalg as la
+    runs = {}
+    for label, run in (
+            ("speed test", lambda out: tp.speed_test_matrix_vector(
+                params_out=out, device=dev)),
+            ("unicycle speed test", lambda out: tu.unicycle_speed_test(
+                device=dev))):
+        fitted = {}
+        la.psd_cholesky.rungs = None
+        res, wall, counts, rungs = _counted(lambda: run(fitted))
+        cogp_rungs = la.psd_cholesky.rungs.tolist()
+        for name, per_k in res.items():
+            for k, r in per_k.items():
+                print(f"[{label}] {name} k={k}: {r['elapsed'] * 1e3:.3f} ms "
+                      f"per refresh + predict_fullmat, error "
+                      f"{r['error']:.4f}", flush=True)
+                _require(math.isfinite(r["elapsed"]) and r["elapsed"] > 0
+                         and math.isfinite(r["error"]),
+                         f"{label} {name} k={k}: {r}")
+        kmax = max(res["matrix"])
+        ratio = res["matrix"][kmax]["elapsed"] / res["vector"][kmax]["elapsed"]
+        moved = {f"{n} {k}": _moved(*p) for n, d in fitted.items()
+                 for k, p in d.items()}
+        want = _speed_test_launches(res)
+        if label == "unicycle speed test":
+            want["ipm"] = 512
+        print(f"[{label}] MVGP / CoGP time at k={kmax}: {ratio:.4f} "
+              f"(reference workstation 0.0775 / 0.1915 s at k = 512); wall "
+              f"{wall:.3f} s on {card}; launches {counts} (schedule {want}); "
+              f"MVGP refresh rungs {rungs}; CoGP factorizations per "
+              f"accepted rung {cogp_rungs}; least |lengthscale change| per "
+              f"fit {moved}", flush=True)
+        _require(all(v > 1e-3 for v in moved.values()),
+                 f"{label}: a fit did not move the hyperparameters {moved}")
+        _require(counts == want, f"{label}: launches {counts} != {want}")
+        runs[label] = counts
+    return runs
+
+
+def _monte_carlo(dev, card):
+    """(d) `monte_carlo_unicycle` at its defaults (1024 episodes, 500
+    steps): finite, no collision, at least 95% feasible steps, launch
+    counts and accepted rungs held to the schedule; then the console
+    entry at a small size in a subprocess.  Returns the launch counts."""
+    import subprocess
+    import sys
+    from bayesian_cbf_tpu_torch.experiments import montecarlo as mc
+    (sim, outs, stats), wall, counts, rungs = _counted(
+        lambda: mc.monte_carlo_unicycle(device=dev))
+    stats = {k: float(v) for k, v in stats.items()}
+    lrn = sim.learned_dynamics
+    B, T = outs.X.shape[:2]
+    want = _expected_launches(lrn, T, sim.controller.warm_start)
+    finite = bool(torch.isfinite(outs.X).all() & torch.isfinite(outs.U).all())
+    print(f"[monte carlo] B={B} K={lrn.max_train} T={T}: wall {wall:.3f} s "
+          f"({B * T / wall:.1f} steps/s, fits included) on {card}; {stats}; "
+          f"finite {finite}; launches {counts} (schedule {want}); refresh "
+          f"rungs {rungs}", flush=True)
+    _require(finite and all(math.isfinite(v) for v in stats.values()),
+             "monte carlo: not finite")
+    _require(stats["collision_fraction"] == 0.0,
+             f"monte carlo: collisions {stats['collision_fraction']}")
+    _require(stats["feasible_fraction"] >= 0.95,
+             f"monte carlo: feasible fraction {stats['feasible_fraction']}")
+    _require(counts == want, f"monte carlo: launches {counts} != {want}")
+    _require(sum(rungs) == B * _n_fits(lrn, T),
+             f"monte carlo: accepted rungs {rungs}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "bayesian_cbf_tpu_torch.cli",
+         "monte_carlo_unicycle", "--set", "n_rollouts=64", "--set",
+         "numSteps=50"], cwd=root, capture_output=True, text=True,
+        timeout=600)
+    _require(proc.returncode == 0,
+             f"cli monte_carlo_unicycle: exit {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"[monte carlo cli] n_rollouts=64 numSteps=50: {res}", flush=True)
+    _require(sorted(res) == sorted(stats)
+             and all(isinstance(v, float) and math.isfinite(v)
+                     for v in res.values()),
+             f"cli monte_carlo_unicycle: {res}")
+    return counts
+
+
+def _batch_of_one_on(out, device, dtype):
+    """An episode's outputs (T, ...) as a batch of one on device/dtype."""
+    one = lambda a: a[None].to(device=device, dtype=dtype)
+    return out._replace(X=one(out.X), U=one(out.U), Xdot=one(out.Xdot),
+                        knl=type(out.knl)(*(one(a) for a in out.knl)))
+
+
+def _trigger_learning_run(dev, card, learning, no_learning):
+    """(e) `trigger_analysis_learning_run` at its defaults on the card: the
+    learning_passes verdict against phase 7's no-learning episode, max
+    |dX| against phase 7's learning episode, launch counts held to the
+    schedule; the sweep again in f64 on the host from the episode's
+    arrays: tau and Lfh finite and positive on the moving steps, the f32
+    medians within 1e-3 relative of the f64 ones.  Returns the launch
+    counts."""
+    from bayesian_cbf_tpu_torch.experiments import montecarlo as mc
+    from bayesian_cbf_tpu_torch.experiments import unicycle as tu
+    co = _check_outcomes_torch()
+    (sim, out, st), wall, counts, rungs = _counted(
+        lambda: mc.trigger_analysis_learning_run(device=dev))
+    lrn = sim.learned_dynamics
+    T = sim.numSteps
+    want = _expected_launches(lrn, T, sim.controller.warm_start)
+    verdict = co.verdicts({
+        "learning": co.unicycle_result("learning", sim, out),
+        "no_learning": co.unicycle_result("no_learning", sim, no_learning)})
+    dX = float((out.X - learning.X).abs().max())
+    f64 = torch.float64
+    sim64 = tu.make_ackermann_tracking_sim(**tu.EXPERIMENTS["learning"],
+                                           device="cpu", dtype=f64)
+    ref = mc.trigger_sweep_for_rollout(
+        sim64, _batch_of_one_on(out, "cpu", f64), stride=10)
+    moving = torch.as_tensor(st["moving"])
+    q = lambda a: [float(a.min()), float(a.median()), float(a.max())]
+    tau32, L32 = torch.as_tensor(st["tau"])[moving], torch.as_tensor(
+        st["Lfh"])[moving]
+    tau64, L64 = ref[0][moving], ref[2][moving]
+    rel = {name: abs(float(a.median()) - float(b.median())) / float(b.median())
+           for name, a, b in (("tau", tau32, tau64), ("Lfh", L32, L64))}
+    print(f"[trigger learning run] T={T}: wall {wall:.3f} s on {card}; "
+          f"verdicts {verdict}; max |dX| against phase 7's learning "
+          f"episode {dX:.3e}; launches {counts} (schedule {want}); refresh "
+          f"rungs {rungs}; {int(moving.sum())} moving of "
+          f"{moving.numel()} swept steps; tau min / median / max f32 "
+          f"{q(tau32)} s, f64 {q(tau64)} s (reference 2.05e-4 / 4.76e-4 / "
+          f"1.2e-3 s, JAX's own run median 8.9e-6 s); Lfh f32 {q(L32)}, "
+          f"f64 {q(L64)} (JAX's median 375); f32 median's relative "
+          f"distance from f64 {rel}", flush=True)
+    _require(verdict.get("learning_passes") is True,
+             f"trigger learning run: learning_passes {verdict}")
+    _require(counts == want,
+             f"trigger learning run: launches {counts} != {want}")
+    for a in (tau32, L32, tau64, L64):
+        _require(bool(torch.isfinite(a).all() & (a > 0).all()),
+                 "trigger learning run: tau or Lfh not finite and positive")
+    _require(all(v < 1e-3 for v in rel.values()),
+             f"trigger learning run: f32 medians off f64: {rel}")
+    return counts
+
+
+def phase_cogp_montecarlo(dev, card, cones, outcome_outs):
+    """Phase 11: (a) the kernel checks at this phase's shapes, (b) the
+    learning error, (c) the two speed tests, (d) the Monte-Carlo batch,
+    (e) the self-triggered analysis of the learning episode.  Returns the
+    kernel checks and the launch counts per run."""
+    t0 = time.perf_counter()
+    chol, ipm = _phase11_kernels(dev, cones)
+    runs = {"learn_dynamics": _learn_dynamics(dev, card)}
+    runs.update(_speed_tests(dev, card))
+    runs["monte carlo"] = _monte_carlo(dev, card)
+    runs["trigger learning run"] = _trigger_learning_run(
+        dev, card, outcome_outs["learning"][0],
+        outcome_outs["no_learning"][0])
+    print(f"[phase 11] {time.perf_counter() - t0:.1f} s", flush=True)
+    return chol, ipm, runs
+
+
 def main():
     dev, card = phase_device()
     phase_build()
@@ -2400,6 +2759,11 @@ def main():
     runs.update(phase_serving(dev, card))
     runs.update(phase_gp(dev, card, pend["reference schedule"][3],
                          outcome_outs))
+    chol11, ipm["b1024"], runs11 = phase_cogp_montecarlo(dev, card, cones,
+                                                          outcome_outs)
+    for key in ("kinv_logdet", "chol_linv"):
+        chol[key].update({shape: v[key] for shape, v in chol11.items()})
+    runs.update(runs11)
 
     def entry(name, source, replaces, run, stats, counter=None):
         counter = counter or name

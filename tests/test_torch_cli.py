@@ -3,7 +3,8 @@ the JAX package's: `kwvariations` and `apply_overrides`; `run_experiment`'s
 run directory (config.json equal to JAX's for the same overrides, the
 obstacles included; metrics.jsonl with JAX's tags and trajectory);
 `cli.main` with --cpu, --set and --sweep, its rejections; the named
-runs through `main`; `filter_runs` and `load_metrics`.
+runs through `main` (the MVGP-against-CoGP and Monte-Carlo entries at
+small sizes); `filter_runs` and `load_metrics`.
 """
 import json
 import math
@@ -151,6 +152,39 @@ def test_named_entries(capsys):
     assert math.isfinite(res["rmse"])
     with pytest.raises(SystemExit):
         cli.main(["car_learn_dynamics", "--cpu", "--sweep", "seed=[0,1]"])
+
+
+@pytest.mark.parametrize("name, sets, check", [
+    ("pendulum_learn_dynamics",
+     ["max_train=16", "training_iter=2", "n_test=8", "tries=2"],
+     lambda r: sorted(r) == ["matrix", "vector"]
+     and all(math.isfinite(v) for v in r.values())),
+    ("speed_test_matrix_vector",
+     ["max_train_list=(6,)", "grid=3", "ntimes=1", "repeat=1",
+      "training_iter=2"],
+     lambda r: sorted(r) == ["matrix", "matrixdiag", "vector", "vectordiag"]
+     and all(sorted(v) == ["6"] and v["6"]["elapsed"] > 0
+             and math.isfinite(v["6"]["error"]) for v in r.values())),
+    ("unicycle_speed_test",
+     ["numSteps=12", "max_train_list=(6,)", "ntimes=1", "repeat=1",
+      "training_iter=2", "regressors=('matrix','vectordiag')"],
+     lambda r: sorted(r) == ["matrix", "vectordiag"]
+     and all(math.isfinite(v["6"]["error"]) for v in r.values())),
+    ("monte_carlo_unicycle",
+     ["n_rollouts=2", "numSteps=6", "max_train=4", "training_iter=2"],
+     lambda r: sorted(r) == ["collision_fraction", "feasible_fraction",
+                             "mean_goal_distance", "min_clearance"]
+     and all(isinstance(v, float) and math.isfinite(v)
+             for v in r.values())),
+])
+def test_named_experiments_of_the_cogp_and_monte_carlo_slice(
+        name, sets, check, capsys):
+    """The dynamics-learning, speed-test and Monte-Carlo entries on the
+    CPU at small sizes print their JSON (the speed tests keyed by k)."""
+    args = [a for v in sets for a in ("--set", v)]
+    assert cli.main([name, "--cpu", *args]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert check(res), res
 
 
 def test_metrics_logger_roundtrip(tmp_path):
