@@ -1,6 +1,7 @@
 """Console entry point.
 
     bayes-cbf-tpu-torch <experiment> [--set k=v ...] [--sweep k=[...]]
+        [--log-backend {jsonl,binary}] [--plot] [--animate]
     python -m bayesian_cbf_tpu_torch.cli <experiment> ...
 
 It runs one of the registered experiments (the four README unicycle
@@ -8,7 +9,11 @@ experiments) through `experiments.harness`, or one of the named runs
 (`NAMED`: the pendulum's online learning and ground-truth QP, the car's
 and the pendulum's dynamics learning, the two MVGP-against-CoGP speed
 tests, the Monte-Carlo batch), which print their result as JSON and take
---set but not --sweep.  Everything runs on the card in float32; --cpu runs on
+--set but not --sweep.  --log-backend binary logs the rollout through the
+native writer (built with g++ at first use; it raises if it cannot be);
+--plot draws the trajectory into the run directory and --animate an
+animation, both through matplotlib (ImportError where it is missing).
+Everything runs on the card in float32; --cpu runs on
 the CPU in float64.  Without --cpu and without a CUDA device the command
 raises.
 """
@@ -62,12 +67,21 @@ def main(argv=None):
                         help="sweep a keyword over a list of values "
                              "(repeatable; grid product of all sweeps)")
     parser.add_argument("--runs-dir", default="data/runs")
+    parser.add_argument("--plot", action="store_true",
+                        help="draw the logged trajectory (matplotlib)")
+    parser.add_argument("--animate", action="store_true",
+                        help="animate the logged run (matplotlib)")
+    parser.add_argument("--log-backend", choices=("jsonl", "binary"),
+                        default="jsonl",
+                        help="metrics format: JSON lines or the native "
+                             "binary writer")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU in float64")
     args = parser.parse_args(argv)
-    if args.experiment in NAMED and args.sweeps:
-        parser.error(f"--sweep runs the registered experiments only, not "
-                     f"{args.experiment}")
+    if args.experiment in NAMED and (args.sweeps or args.plot
+                                     or args.animate):
+        parser.error(f"--sweep, --plot and --animate run the registered "
+                     f"experiments only, not {args.experiment}")
     device, dtype = _device(args.cpu)
     overrides = _parse_sets(args.sets)
     if args.experiment in NAMED:
@@ -77,12 +91,16 @@ def main(argv=None):
         variations = kwvariations(**_parse_sets(args.sweeps))
         results = run_experiment_mult(args.experiment, variations,
                                       runs_dir=args.runs_dir, device=device,
-                                      dtype=dtype, **overrides)
+                                      dtype=dtype, plot=args.plot,
+                                      animate=args.animate,
+                                      backend=args.log_backend, **overrides)
         for var, run_dir in results:
             print(json.dumps({"overrides": var, "run_dir": run_dir}))
         return 0
     _, out, run_dir = run_experiment(args.experiment, runs_dir=args.runs_dir,
-                                     device=device, dtype=dtype, **overrides)
+                                     plot=args.plot, animate=args.animate,
+                                     backend=args.log_backend, device=device,
+                                     dtype=dtype, **overrides)
     print(json.dumps({
         "run_dir": run_dir,
         "feasible_frac": float(out.info.feasible.double().mean()),

@@ -1,4 +1,5 @@
-"""Reference planners: piecewise-linear, and the constant goal.
+"""Reference planners: piecewise-linear, a cubic spline through seven
+knots, and the constant goal.
 
 The step index t is a Python int (the rollout's static loop counter), so
 the checkpoint selection happens on the host and `plan(t)` / `dot_plan(t)`
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -77,6 +79,94 @@ class PiecewiseLinearPlanner(NamedTuple):
         wterm = (xdiff[..., 2:3] - xdiff[..., 3:4]) / torch.sum(
             xdiff[..., 2:4] ** 2, -1, keepdim=True)
         return torch.cat([xdiff[..., :2], wterm], -1)
+
+
+def _natural_cubic_coeffs(ts: np.ndarray, ys: np.ndarray):
+    """The natural cubic spline through (ts, ys), in f64 on the host: its
+    per-segment (b, c, d) with y = ys[i] + b u + c u^2 + d u^3 on segment
+    i, u = t - ts[i]."""
+    n = len(ts)
+    h = np.diff(ts)
+    A = np.zeros((n, n))
+    rhs = np.zeros(n)
+    A[0, 0] = A[-1, -1] = 1.0
+    for i in range(1, n - 1):
+        A[i, i - 1] = h[i - 1]
+        A[i, i] = 2 * (h[i - 1] + h[i])
+        A[i, i + 1] = h[i]
+        rhs[i] = 3 * ((ys[i + 1] - ys[i]) / h[i]
+                      - (ys[i] - ys[i - 1]) / h[i - 1])
+    c = np.linalg.solve(A, rhs)
+    b = (np.diff(ys) / h) - h * (2 * c[:-1] + c[1:]) / 3
+    d = np.diff(c) / (3 * h)
+    return b, c[:-1], d
+
+
+class SplinePlanner(NamedTuple):
+    """A cubic-spline plan through seven knots (the reference's
+    planner.py:66-110, with a natural cubic spline in place of scipy's
+    splrep): hold the start, turn towards the goal, cross to it, turn to
+    the goal's heading.  The spline is solved once, in f64 on the host, at
+    `create`."""
+    knots_t: torch.Tensor    # (K,)
+    knots_y: torch.Tensor    # (K, 3) values at the knots
+    coef_b: torch.Tensor     # (K-1, 3)
+    coef_c: torch.Tensor
+    coef_d: torch.Tensor
+    numSteps: int
+    dt: float
+
+    @classmethod
+    def create(cls, x0, x_goal, numSteps, dt, device="cuda",
+               dtype=torch.float32):
+        """The plan from x0 (3,) to x_goal (3,) over numSteps steps, its
+        tensors on `device` in `dtype` (the card unless the caller asks
+        for the CPU)."""
+        x0 = np.asarray(torch.as_tensor(x0).cpu(), dtype=np.float64)
+        x_goal = np.asarray(torch.as_tensor(x_goal).cpu(), dtype=np.float64)
+        xdiff = x_goal[:2] - x0[:2]
+        desired_theta = np.arctan2(xdiff[1], xdiff[0])
+        t1 = max(int(numSteps * 0.1), 1)
+        t2 = min(int(numSteps * 0.9), numSteps - 1)
+        dx = (x_goal - x0) / (t2 - t1)
+        tmid = (t1 + t2) / 2
+        xmid = (x0 + x_goal) / 2
+        knots = np.array([
+            [0, x0[0], x0[1], x0[2]],
+            [t1, x0[0], x0[1], desired_theta],
+            [t1 + 1, x0[0] + dx[0], x0[1] + dx[1], desired_theta],
+            [tmid, xmid[0], xmid[1], desired_theta],
+            [t2 - 1, x_goal[0] - dx[0], x_goal[1] - dx[1], desired_theta],
+            [t2, x_goal[0], x_goal[1], desired_theta],
+            [numSteps, x_goal[0], x_goal[1], x_goal[2]]])
+        ts, ys = knots[:, 0], knots[:, 1:]
+        coefs = [_natural_cubic_coeffs(ts, ys[:, j]) for j in range(3)]
+        kw = dict(dtype=dtype, device=device)
+        b, c, d = (torch.tensor(np.stack([cf[i] for cf in coefs], -1), **kw)
+                   for i in range(3))
+        return cls(knots_t=torch.tensor(ts, **kw),
+                   knots_y=torch.tensor(ys, **kw), coef_b=b, coef_c=c,
+                   coef_d=d, numSteps=numSteps, dt=dt)
+
+    def _segment(self, t):
+        t = torch.as_tensor(t, dtype=self.knots_y.dtype,
+                            device=self.knots_y.device)
+        idx = torch.clamp(torch.searchsorted(self.knots_t, t, right=True) - 1,
+                          0, self.knots_t.shape[0] - 2)
+        return idx, (t - self.knots_t[idx])[..., None]
+
+    def plan(self, t):
+        """The plan at step t: a number (3,) or a tensor of steps
+        (..., 3)."""
+        i, u = self._segment(t)
+        return (self.knots_y[i] + self.coef_b[i] * u
+                + self.coef_c[i] * u ** 2 + self.coef_d[i] * u ** 3)
+
+    def dot_plan(self, t):
+        """The plan's derivative in the step index at t, as `plan`."""
+        i, u = self._segment(t)
+        return (self.coef_b[i] + 2 * self.coef_c[i] * u
+                + 3 * self.coef_d[i] * u ** 2)
 
 
 class NoPlanner(NamedTuple):

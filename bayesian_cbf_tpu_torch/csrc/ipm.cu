@@ -519,12 +519,21 @@ struct Shape {
 //             slack, y] with cones of dimensions (3, 1, 1, 1, 1);
 //  (4, 6, 4)  group width 8: the deterministic mean-CLF QP, [u (2), relax,
 //             t] with cones of dimensions (4, 1, 1, 1, 1, 1);
-//  (4, 2, 4)  the unicycle controller without obstacles (objective, CLC).
+//  (4, 2, 4)  the unicycle controller without obstacles (objective, CLC);
+//  (3, 2, 3)  the pendulum controller with hard CBC2 cones (cbc_relax
+//             off): [u, delta, y] with the objective and one CBC2 cone;
+//  (3, 3, 3)  the same with the stability cone of a CLC (clc_fn);
+//  (4, 4, 3)  the pendulum controller with the slack and a CLC: cones of
+//             dimensions (3, 3, 1, 3);
+//  (3, 3, 4)  solvers/qp.solve_qp_active_set at two variables, a
+//             three-row least-squares objective and two linear rows: [u
+//             (2), t] with cones of dimensions (4, 1, 1).
 // A source that includes this file after defining IPM_SHAPES instantiates
 // its own list instead (csrc/ipm_exact.cu).
 #ifndef IPM_SHAPES
 #define IPM_SHAPES Shape<4, 4, 4>, Shape<4, 3, 3>, Shape<3, 5, 3>, \
-                   Shape<4, 6, 4>, Shape<4, 2, 4>
+                   Shape<4, 6, 4>, Shape<4, 2, 4>, Shape<3, 2, 3>, \
+                   Shape<3, 3, 3>, Shape<4, 4, 3>, Shape<3, 3, 4>
 #endif
 template <class... S>
 struct ShapeList {};

@@ -145,3 +145,39 @@ class CompiledController:
         """Install a copy of a carry taken from `state()` (or loaded with
         `observability.logger.load_checkpoint`)."""
         self._carry = _clone(carry)
+
+    def cost_analysis(self, x_measured=None, draw: Optional[int] = None
+                      ) -> dict:
+        """A `torch.profiler` summary of one tick from the current carry,
+        which is put back afterwards with the step count and the
+        generator's state, so the next `tick` is the one that would have
+        run: {"wall_ms": the profiled tick's wall (profiling included),
+        "kernels": {kernel name: {"device_ms", "launches"}} (the card's
+        kernels; empty on the CPU), "device_ms": their sum, "launches":
+        their count, "flops": the profiler's flop count of the tick's
+        matmul-type operations}.  Profiling errors raise."""
+        import tempfile
+        import time
+
+        from .observability.profiling import kernel_summary, trace
+        carry, t = self.state(), self._t
+        gen_state = self.generator.get_state()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                with trace(tmp, with_flops=True) as path:
+                    t0 = time.perf_counter()
+                    self.tick(x_measured, draw)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    wall = time.perf_counter() - t0
+                kernels = kernel_summary(path)
+            flops = sum(e.flops for e in trace.last.key_averages()
+                        if getattr(e, "flops", 0))
+        finally:
+            self.restore(carry)
+            self._t = t
+            self.generator.set_state(gen_state)
+        return {"wall_ms": 1e3 * wall, "kernels": kernels,
+                "device_ms": sum(k["device_ms"] for k in kernels.values()),
+                "launches": sum(k["launches"] for k in kernels.values()),
+                "flops": int(flops)}

@@ -3,7 +3,8 @@ sweeps.
 
 Every run gets a directory <runs_dir>/<name>_<stamp> with a config.json
 of its keyword overrides (plus the obstacles, dt, numSteps and goal) and
-its logged rollout (`observability.logger.MetricsLogger`).  `kwvariations`
+its logged rollout (`observability.logger.MetricsLogger`, on any of its
+backends), and optionally the run drawn again from its log.  `kwvariations`
 grid-expands keyword axes; `apply_overrides` sets dotted keys of a nested
 config.  The experiments run on the card unless the caller passes
 device="cpu".
@@ -12,11 +13,12 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 from typing import Any, Callable, Dict, Iterable, List, Tuple
 
 import torch
 
-from ..observability.logger import MetricsLogger
+from ..observability.logger import MetricsLogger, replay_run
 
 
 def _registry() -> Dict[str, Callable]:
@@ -68,18 +70,33 @@ def apply_overrides(base: Dict[str, Any],
 
 
 def run_experiment(name: str, runs_dir: str = "data/runs",
-                   log_every: int = 1, device="cuda",
-                   dtype=torch.float32, **overrides) -> Tuple[Any, Any, str]:
+                   log_every: int = 1, plot: bool = False,
+                   animate: bool = False, backend: str = "jsonl",
+                   device="cuda", dtype=torch.float32,
+                   **overrides) -> Tuple[Any, Any, str]:
     """Run a registered experiment on `device` in `dtype` with a run
-    directory, its config.json and the logged rollout.  The overrides go
-    to the experiment (and into config.json); device and dtype do not
-    enter the config.  Returns (sim, outputs, run_dir)."""
+    directory, its config.json and the logged rollout (through the
+    logger's `backend`: "jsonl", "binary" or "tensorboard").  The
+    overrides go to the experiment (and into config.json); device and
+    dtype do not enter the config.  plot: the trajectory drawn again from
+    the log into <run_dir>/trajectory.png; animate: the animation into
+    <run_dir>/animation.gif (`observability.logger.replay_run`; both need
+    matplotlib and raise ImportError without it).  Returns (sim, outputs,
+    run_dir)."""
     fn = _registry()[name]
+    if plot or animate:
+        import matplotlib  # noqa: F401  (ImportError before the run)
     logger = MetricsLogger(runs_dir=runs_dir, exp_tags=[name],
+                           backend=backend,
                            config={"name": name, **overrides})
     sim, out = fn(**overrides, device=device, dtype=dtype)
     logger.log_rollout(out, every=log_every, sim=sim)
     logger.close()
+    if plot:
+        replay_run(logger.dir,
+                   savefile=os.path.join(logger.dir, "trajectory.png"))
+    if animate:
+        replay_run(logger.dir, animate=True)
     return sim, out, logger.dir
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import math
 import time
 from functools import lru_cache
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,6 +45,9 @@ class PendulumOnlineSim(NamedTuple):
     numSteps: int
     device: torch.device = torch.device("cuda")
     dtype: torch.dtype = torch.float32
+    # (state, u) -> one episode's CLC GP for the controller's stability
+    # cone (`learned_socp_controller.norm2_clc`); None: no such cone
+    clc_fn: Optional[Callable] = None
 
 
 def make_pendulum_online_sim(
@@ -113,7 +116,9 @@ def run_pendulum_online_batch(sim: PendulumOnlineSim, x0s,
     pendulum.  With sim.controller.closed_form False the CBC2 cones come
     from the GP expression path, each episode's (f, Fu) pair made per u
     from its learner state by `f_gp_and_fu_gp`; the LQR still reads the
-    moment derivatives.  The rollout is cut at the refit steps of
+    moment derivatives.  With sim.clc_fn the SOCP gains the stability
+    cone of that CLC (its terms through the GP expression path).  The
+    rollout is cut at the refit steps of
     `fit_segments` (after every step t > 0 with t % train_every_n_steps
     == 0); the first
     event runs `fit_now_first`, later ones `fit_now_warm`, each for the
@@ -143,7 +148,7 @@ def run_pendulum_online_batch(sim: PendulumOnlineSim, x0s,
             u_ref = sim.egreedy.perturb(u_lqr, t, uni)
             u, info = learned_socp_control(
                 sim.controller, (sim.cbf,), mder, u_ref, X, u_fallback=u_lqr,
-                pair_fn=lrn.f_gp_and_fu_gp, state=states)
+                pair_fn=lrn.f_gp_and_fu_gp, state=states, clc_fn=sim.clc_fn)
             states = lrn.record(states, X, u,
                                 j=None if draws is None else draws[t],
                                 generator=generator)
@@ -152,7 +157,9 @@ def run_pendulum_online_batch(sim: PendulumOnlineSim, x0s,
             X = X_next
         if do_fit:
             fit = lrn.fit_now_first if fit_event == 0 else lrn.fit_now_warm
-            states = where_tree(states.count_res > 0, fit(states), states)
+            with torch.profiler.record_function("fit"):
+                states = where_tree(states.count_res > 0, fit(states),
+                                    states)
             fit_event += 1
     return PendulumOutputs(*_stack_steps(ys))
 

@@ -1,2 +1,2 @@
-"""Metrics logging, config dumps, checkpoints and self-triggered
-intervals."""
+"""Metrics logging (JSONL, binary, tensorboard), config dumps, replay,
+checkpoints, self-triggered intervals, profiling and figures."""

@@ -68,25 +68,33 @@ def cbc2_quadratic_terms(cbc_of_u, x, u0):
     return (bfe, e), (V, bfv, v), bfe @ u0 + e, u0 @ V @ u0 + bfv @ u0 + v
 
 
+def gp_quadratic_terms(gp_of, state, x, u0):
+    """`cbc2_quadratic_terms` for a batch: the terms of the scalar GP
+    family u -> gp_of(state_b, u) of each episode b, at states x (B, n),
+    extracted at u0 (B, m), with `state` a tree of tensors with the episode
+    axis in front.  Vectorized with `torch.func.vmap`; returns the terms
+    with the episode axis in front."""
+    def one(x1, u01, st):
+        return cbc2_quadratic_terms(lambda u: gp_of(st, u), x1, u01)
+
+    return torch.func.vmap(one)(x, u0, state)
+
+
 def cbc2_gp_terms(cbf, k_alpha, pair_fn, state, x, u0):
     """`cbc2_quadratic_terms(cbc2_gp(...))` for a batch: the CBC2 terms of
     barrier `cbf` (batch-first cbf and grad_cbf) at states x (B, n),
     extracted at u0 (B, m), each episode with the (f, Fu) pair
     pair_fn(state_b, u) of its own learner state (`state`: a tree of
     tensors with the episode axis in front, e.g. a LearnedDynState and
-    `LearnedShiftInvariantDynamics.f_gp_and_fu_gp`).  Vectorized with
-    `torch.func.vmap`; returns the terms with the episode axis in front,
-    as `cbc2_closed_form_terms` does."""
+    `LearnedShiftInvariantDynamics.f_gp_and_fu_gp`), through
+    `gp_quadratic_terms`; returns the terms with the episode axis in
+    front, as `cbc2_closed_form_terms` does."""
     n = x.shape[-1]
     h = lambda x1: cbf.cbf(x1[None])[0]
     grad_h = lambda x1: cbf.grad_cbf(x1[None])[0]
-
-    def one(x1, u01, st):
-        return cbc2_quadratic_terms(
-            lambda u: cbc2_gp(h, grad_h, lambda v: pair_fn(st, v), n,
-                              k_alpha, u), x1, u01)
-
-    return torch.func.vmap(one)(x, u0, state)
+    return gp_quadratic_terms(
+        lambda st, u: cbc2_gp(h, grad_h, lambda v: pair_fn(st, v), n,
+                              k_alpha, u), state, x, u0)
 
 
 def _clamp_small_negative_eigs(K):

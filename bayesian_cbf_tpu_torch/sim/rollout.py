@@ -111,7 +111,11 @@ def fit_segments(numSteps: int, train_every: int, enable: bool):
 
 
 def _stack_steps(ys):
+    """Per-step trees stacked on a new step axis 1 (None leaves stay
+    None)."""
     first = ys[0]
+    if first is None:
+        return None
     if isinstance(first, torch.Tensor):
         return torch.stack(ys, 1)
     vals = [_stack_steps([y[i] for y in ys]) for i in range(len(first))]
@@ -151,7 +155,9 @@ def _rollout(sim: UnicycleSim, x0s, generator, state0, draws):
             # warm refit; episodes with an empty reservoir keep their state
             fit = lrn.fit_now_first if fit_event == 0 else lrn.fit_now_warm
             states = carry[1]
-            states = where_tree(states.count_res > 0, fit(states), states)
+            with torch.profiler.record_function("fit"):
+                states = where_tree(states.count_res > 0, fit(states),
+                                    states)
             carry = (carry[0], states) + carry[2:]
             fit_event += 1
     Xs, U, Xdot, info, knl = _stack_steps(ys)
@@ -208,3 +214,44 @@ def simulate_unicycle(sim: UnicycleSim, x0,
     the final learner state; outputs (T, ...)."""
     return simulate_unicycle_with_state(sim, x0, generator, state0,
                                         draws)[0]
+
+
+def sample_generator_trajectory(dynamics, controller_fn, x0, numSteps: int,
+                                dt: float):
+    """A rollout of any control-affine model (batch-first, as the port's
+    models are): u = controller_fn(x, t), (x', xdot) = dynamics.step(x, u,
+    dt), for t < numSteps, from x0 (n,) or a batch (B, n); the controller
+    sees x as x0 is shaped.  Returns (Xdot, X, U) stacked on a new
+    leading step axis (the reference's sampling.py:49-75)."""
+    single = x0.ndim == 1
+    x = x0[None] if single else x0
+    Xdot, X, U = [], [], []
+    for t in range(numSteps):
+        u = controller_fn(x[0] if single else x, t)
+        x_next, xdot = dynamics.step(x, u[None] if single else u, dt)
+        Xdot.append(xdot)
+        X.append(x)
+        U.append(u[None] if single else u)
+        x = x_next
+    out = (torch.stack(Xdot), torch.stack(X), torch.stack(U))
+    return tuple(a[:, 0] for a in out) if single else out
+
+
+def sample_generator_independent(dynamics, generator: torch.Generator,
+                                 n: int, x_lo, x_hi, u_lo, u_hi,
+                                 dtype=torch.float32):
+    """n independent (x, u) pairs drawn uniformly from the boxes [x_lo,
+    x_hi] and [u_lo, u_hi] (from `generator`, on its device) and their
+    xdot = f(x) + g(x) u: (Xdot, X, U) (the reference's
+    sampling.py:78-90)."""
+    kw = dict(dtype=dtype, device=generator.device)
+
+    def uniform(lo, hi):
+        lo, hi = torch.as_tensor(lo, **kw), torch.as_tensor(hi, **kw)
+        return lo + (hi - lo) * torch.rand((n, lo.shape[0]),
+                                           generator=generator, **kw)
+
+    X = uniform(x_lo, x_hi)
+    U = uniform(u_lo, u_hi)
+    Xdot = dynamics.f_func(X) + (dynamics.g_func(X) @ U[..., None])[..., 0]
+    return Xdot, X, U

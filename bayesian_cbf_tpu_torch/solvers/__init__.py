@@ -1,1 +1,1 @@
-"""Second-order cone programming."""
+"""Second-order cone programming, and QPs as epigraph SOCPs."""

@@ -1,1 +1,1 @@
-"""Linear-algebra and scalar helpers."""
+"""Linear-algebra and scalar helpers, and debug sanitizers."""

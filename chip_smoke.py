@@ -47,10 +47,10 @@ Phases (each raises on failure; nothing is caught):
                  batched checks, with times and bounds at B = 1.
   4. main     -- the batched unicycle learn-and-control loop (B=256
                  episodes, K=200, 2000 steps, bench.py's configuration)
-                 through bench_torch.py's protocol: a cold rollout and a
-                 warm one of the same inputs, each with its wall and its
-                 launch counts, the batched-learning outcome gate, and
-                 the accepted rungs of its cache refreshes.
+                 through bench_torch.py's protocol: one cold rollout with
+                 its wall and its launch counts, the batched-learning
+                 outcome gate, and the accepted rungs of its cache
+                 refreshes.
   5. configs  -- the same loop under three other MVGP configurations:
                  (a) fit_inverse "chol" with linv_assembly "row",
                  (b) fit_inverse "sweep_full", (c) fused_gram; each with
@@ -128,6 +128,31 @@ Phases (each raises on failure; nothing is caught):
                  verdict, its sweep again in f64 on the host (medians of
                  tau and Lfh within 1e-3).  Launch counts held to the
                  schedule, the CoGP's accepted jitter rungs counted.
+ 12. options and observability -- (b) the continuous pendulum batch
+                 with hard CBC2 cones (cbc_relax=False): launches held to
+                 the schedule (ipm (3, 2, 3) 250, kinv_logdet 35,
+                 chol_linv 6), finite, feasible and certified fractions
+                 printed; (a) the IPM at its four new shapes, each on
+                 random cones, on real ones, at B = 1 and on a ragged
+                 batch with the bars of phase 3: (3, 2, 3), (3, 3, 3) and
+                 (4, 4, 3) on the pendulum controller's SOCPs with hard
+                 cones, hard cones and a CLC, relaxed cones and a CLC
+                 (a learner fitted on the first 201 steps of that batch,
+                 the states of step 200; the CLC of V = s ||x||^2
+                 through gp/algebra, s 1e-4 hard, 1e-3 relaxed), (3, 3,
+                 4) on 256 QPs of the JAX
+                 test's structure, and through `solve_qp_active_set`
+                 against SLSQP; B = 1 pendulum
+                 episodes with the CLC, relaxed (50 steps) and hard (20),
+                 finite, launches held to the refits inside them; (c)
+                 phase 7's bayes_cbf episode logged through the JSONL and
+                 the binary (native) backends, read back equal (a binary
+                 record holds the value flattened), and the console with
+                 --log-backend binary in a subprocess; (d)
+                 20 steps of the main batch and 20 serving ticks profiled
+                 (`observability.profiling`): device time by kernel
+                 bucket and the idle share, and one tick's
+                 `cost_analysis()`.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -613,19 +638,19 @@ def _ipm_flops(B, nx, dims, iters):
     return B * (iters * per_iter + 4 * rows * nx)
 
 
-def _check_ipm_kernel(dev, label, rand, real, many, dims):
+def _check_ipm_kernel(dev, label, rand, real, many, dims, kind="real"):
     """The IPM kernel at the instantiation of the problems' shape, on
     random cones of that structure (`rand`) and on a path's real cones
-    (`real`, of dimensions `dims`, padded), cold (25 iterations, each
-    path's start) and warm-started (15), against the plain version and an
-    f64 solve; then on `many`, a larger batch of random cones that fills
-    no whole number of blocks."""
+    (`real`, of dimensions `dims`, padded; `kind` as `_ipm_against_plain`
+    takes it), cold (25 iterations, each path's start) and warm-started
+    (15), against the plain version and an f64 solve; then on `many`, a
+    larger batch of random cones that fills no whole number of blocks."""
     from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
     B, C, d, nx = real[1].shape
     _require((C, d) == (len(dims), max(dims)),
              f"[ipm {label}]: cone dimensions {dims} for ({C}, {d})")
     _ipm_against_plain(dev, label, "random", rand, ik.ipm)
-    worst_err = _ipm_against_plain(dev, label, "real", real, ik.ipm)
+    worst_err = _ipm_against_plain(dev, label, kind, real, ik.ipm)
     cold = _ipm_cold(dev, real)
     _check_ipm_ragged_batch(dev, label, many)
     ms = _cuda_ms(lambda: ik.ipm(*real, *cold, 25, 1e-10), 50)
@@ -663,10 +688,13 @@ def _ipm_bound(B, nx, dims):
 
 def _ipm_against_plain(dev, label, kind, prob, solve):
     """`solve` (the kernel's wrapper, or a route through it) on a batch of
-    problems `prob` of one kind ("random" or a path's "real" cones), cold
-    (25 iterations) and warm-started (15), against the plain version and
-    an f64 solve; the largest |x - x_plain| where both converge (real
-    cones)."""
+    problems `prob` of one kind ("random", a path's "real" cones, or the
+    "qp" epigraph cones of `solve_qp_active_set`), cold (25 iterations)
+    and warm-started (15), against the plain version and an f64 solve;
+    the largest |x - x_plain| where both converge (real and qp cones).
+    The qp cones are held as real ones but for the largest warm |dx|:
+    their optimum in u is flat (plain f32 sits up to 8e-2 from the exact
+    u of such QPs on the CPU), so only the 90th percentile binds there."""
     from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
     from bayesian_cbf_tpu_torch.solvers.socp import _interior_shift
     B = prob[1].shape[0]
@@ -719,7 +747,7 @@ def _ipm_against_plain(dev, label, kind, prob, solve):
                         f"{rel_c:.3e}")
             _require(rel_c < 1e-3, f"{tag}: optimal value disagrees "
                      f"({rel_c})")
-            if kind == "real":
+            if kind != "random":
                 worst_err = max(worst_err, float(
                     (got[0] - want[0]).abs().amax(-1)[both].max()))
         else:
@@ -766,13 +794,14 @@ def _ipm_against_plain(dev, label, kind, prob, solve):
             if kind == "real":
                 _require(float(dx.max()) < 1e-2,
                          f"{tag}: iterates disagree ({float(dx.max())})")
+            if kind != "random":
                 worst_err = max(worst_err,
                                 float((got[0] - want[0]).abs().max()))
         print("; ".join(line), flush=True)
     return worst_err
 
 
-def _check_ipm_b1(dev, label, real, dims):
+def _check_ipm_b1(dev, label, real, dims, kind="real"):
     """The IPM at B = 1, as the single episodes launch it: every problem
     of a path's real cones launched alone (one block, seven of its eight
     problem slots empty), held to the bits of the same problem in one
@@ -795,7 +824,7 @@ def _check_ipm_b1(dev, label, real, dims):
                  f"a batched launch")
         return got
 
-    worst_err = _ipm_against_plain(dev, f"{label} B=1", "real", real,
+    worst_err = _ipm_against_plain(dev, f"{label} B=1", kind, real,
                                    one_at_a_time)
     one = [a[:1].contiguous() for a in real + _ipm_cold(dev, real)]
     run = lambda: ik.ipm(*one, 25, 1e-10)
@@ -1915,22 +1944,26 @@ def _checkpoint_round_trip(dev, ctl):
     _require(same, "checkpoint: the restored controller's control differs")
 
 
-def _cli_subprocess():
+def _cli_subprocess(backend="jsonl"):
     """`python -m bayesian_cbf_tpu_torch.cli unicycle_bayes_cbf_safe_obstacle
-    --runs-dir <tmp>`: exit 0, its last line JSON naming a run directory
-    with config.json (the experiment's name, two obstacles) and a
-    metrics.jsonl with one state a step."""
+    --runs-dir <tmp> --log-backend <backend>`: exit 0, its last line JSON
+    naming a run directory with config.json (the experiment's name, two
+    obstacles) and the backend's log (metrics.jsonl, or metrics.flog from
+    the native writer) with one state a step, read back through
+    `load_metrics`."""
     import subprocess
     import sys
     import tempfile
+    from bayesian_cbf_tpu_torch.observability.logger import load_metrics
     name = "unicycle_bayes_cbf_safe_obstacle"
+    log = dict(jsonl="metrics.jsonl", binary="metrics.flog")[backend]
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "bayesian_cbf_tpu_torch.cli", name,
-             "--runs-dir", tmp], cwd=root, capture_output=True, text=True,
-            timeout=600)
+             "--runs-dir", tmp, "--log-backend", backend], cwd=root,
+            capture_output=True, text=True, timeout=600)
         wall = time.perf_counter() - t0
         _require(proc.returncode == 0,
                  f"cli: exit {proc.returncode}: {proc.stderr[-2000:]}")
@@ -1938,17 +1971,19 @@ def _cli_subprocess():
         run_dir = out["run_dir"]
         with open(os.path.join(run_dir, "config.json")) as f:
             cfg = json.load(f)
-        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-            states = sum('"vis/state"' in line for line in f)
+        files = sorted(os.listdir(run_dir))
+        states = len(load_metrics(run_dir)["vis/state"])
         ok = (os.path.dirname(os.path.abspath(run_dir)) == tmp
+              and log in files
               and cfg.get("name") == name
               and len(cfg.get("obstacles", ())) == 2
               and states == cfg.get("numSteps") == 2000
               and 0.0 <= out["feasible_frac"] <= 1.0
               and all(math.isfinite(v) for v in out["final_state"]))
-    print(f"[cli] python -m bayesian_cbf_tpu_torch.cli {name}: exit 0 in "
-          f"{wall:.3f} s; printed {out}; config.json keys {sorted(cfg)}, "
-          f"{states} states in metrics.jsonl", flush=True)
+    print(f"[cli {backend}] python -m bayesian_cbf_tpu_torch.cli {name} "
+          f"--log-backend {backend}: exit 0 in {wall:.3f} s; printed {out}; "
+          f"run directory {files}, config.json keys {sorted(cfg)}, {states} "
+          f"states read back", flush=True)
     _require(ok, f"cli: run directory or output malformed ({out}, {cfg})")
 
 
@@ -2675,6 +2710,331 @@ def phase_cogp_montecarlo(dev, card, cones, outcome_outs):
     return chol, ipm, runs
 
 
+# ---- phase 12: the remaining options, the binary log, profiles -------------
+
+# the stability cone of phase 12's pendulum runs: the CLC of V(x) = scale
+# ||x||^2 with gamma 1 (`learned_socp_controller.norm2_clc`), the scale by
+# cbc_relax.  The cone is not rescaled, so the scale sets delta and the
+# optimal cost, and with them the IPM's absolute complementarity, which
+# decides whether f32 reaches the checks' score of 1e-3.  On 32 of the
+# option cones of `_pendulum_option_cones` (CPU), 25 iterations reached
+# it in plain f32 on 10 / 23 / 32 of the hard (3, 3, 3) problems at scale
+# 0.01 / 1e-3 / 1e-4, and converged (score < 1e-6) in f64 on 5 / 25 / 28
+# / 17 of the relaxed (4, 4, 3) ones at scale 1 / 0.01 / 1e-3 / 1e-4
+CLC_GAMMA = 1.0
+CLC_SCALE = {False: 1e-4, True: 1e-3}
+# the pendulum controller's cone dimensions under the options: hard CBC2
+# cones, hard with the CLC, relaxed with the CLC; the QP's lifted cones
+UNRELAXED_DIMS, UNRELAXED_CLC_DIMS = (3, 3), (3, 3, 3)
+RELAXED_CLC_DIMS, QP_DIMS = (3, 3, 1, 3), (4, 1, 1)
+
+
+def _pendulum_clc(sim, relax):
+    """The stability cone's CLC for `sim`'s learner (CLC_SCALE[relax])."""
+    from bayesian_cbf_tpu_torch.control import learned_socp_controller as lsc
+    return lsc.norm2_clc(sim.learned.f_gp_and_fu_gp, 2, CLC_GAMMA,
+                         CLC_SCALE[relax])
+
+
+def _unrelaxed_batch(dev, card, px0s):
+    """(b) The continuous pendulum batch (B = 256, K = 200, 250 steps) with
+    hard CBC2 cones (cbc_relax=False): wall, launches held to the schedule
+    (ipm (3, 2, 3) 250, kinv_logdet 35, chol_linv 6), finite episodes;
+    the feasible and certified fractions are printed, not held (the
+    relaxation exists because the hard cone is infeasible on wide
+    posteriors).  Returns (launch counts, sim, outputs)."""
+    from bayesian_cbf_tpu_torch.experiments.pendulum import (
+        run_pendulum_online_batch)
+    label = "pendulum unrelaxed"
+    sim = bt.pendulum_sim(dev, **bt.PENDULUM_CONFIGS["continuous"])
+    sim = sim._replace(controller=sim.controller._replace(cbc_relax=False))
+    out, wall, counts, rungs = _counted(lambda: run_pendulum_online_batch(
+        sim, px0s, generator=torch.Generator(device=dev).manual_seed(0)))
+    T, B = sim.numSteps, px0s.shape[0]
+    want = _expected_launches(sim.learned, T, False)
+    _require((want["ipm"], want["kinv_logdet"], want["chol_linv"])
+             == (250, 35, 6), f"{label}: schedule {want}")
+    feas = out.info.feasible.float()
+    finite = bool(torch.isfinite(out.X).all() and torch.isfinite(out.U).all())
+    print(f"[{label}] B={B} K={sim.learned.max_train} T={T}, the continuous "
+          f"configuration with cbc_relax=False: wall {wall:.3f} s "
+          f"({wall * 1e3 / T:.3f} ms per step, fits included) on {card}; "
+          f"launches {counts} (schedule {want}); accepted rungs {rungs}; "
+          f"finite {finite}; feasible fraction {float(feas.mean()):.4f} "
+          f"(first 100 steps {float(feas[:, :100].mean()):.4f}, last 50 "
+          f"{float(feas[:, -50:].mean()):.4f}), certified "
+          f"{float(out.info.certified.float().mean()):.4f}; damage fraction "
+          f"{float(bt.pendulum_outcomes(sim, out)['mean_damage']):.4f}",
+          flush=True)
+    _require(counts == want, f"{label}: launch counts {counts} != {want}")
+    _require(finite, f"{label}: non-finite episodes")
+    return counts, sim, out
+
+
+def _pendulum_option_cones(dev, sim, out, K=200):
+    """Real cones at the three option shapes: a learner of `sim`'s
+    configuration fitted (`fit_now_first`) on the first K + 1 steps of the
+    batch `out`, the states of step K, the LQR reference; the SOCPs of
+    `learned_socp_cones` with hard CBC2 cones, hard with the CLC, and
+    relaxed with the CLC, padded.  (The step-0 cones of these options are
+    infeasible under the prior: on the CPU in f64 none of 256 converged.)
+    Returns {dims: [c, Gp, hp]}."""
+    from bayesian_cbf_tpu_torch.control.learned_socp_controller import (
+        learned_socp_cones)
+    from bayesian_cbf_tpu_torch.solvers.socp import _pad_cones
+    lrn, B = sim.learned, out.X.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    st = lrn.init_state(B, gen, dev, out.X.dtype)
+    for t in range(K + 1):
+        st = lrn.record(st, out.X[:, t], out.U[:, t], generator=gen)
+    st = lrn.fit_now_first(st)
+    X = out.X[:, K].contiguous()
+    mder = lrn.moment_derivatives(st, X)
+    u_ref = sim.lqr.control_with_model(mder[1][:, :, 0, :], mder[0][:, :, 1:],
+                                       X)
+    cones = {}
+    for relax, with_clc, want in ((False, False, UNRELAXED_DIMS),
+                                  (False, True, UNRELAXED_CLC_DIMS),
+                                  (True, True, RELAXED_CLC_DIMS)):
+        cfg = sim.controller._replace(cbc_relax=relax)
+        cobj, G, h, dims, _, _ = learned_socp_cones(
+            cfg, (sim.cbf,), mder, u_ref, X, state=st,
+            clc_fn=_pendulum_clc(sim, relax) if with_clc else None)
+        _require(dims == want, f"pendulum option cones {dims}, not {want}")
+        Gp, hp = _pad_cones(G, h, dims)
+        cones[dims] = [cobj.expand(B, -1).contiguous(), Gp.contiguous(),
+                       hp.contiguous()]
+    return cones
+
+
+def _qp_problems(B, seed):
+    """B QPs of the JAX test's structure (tests/test_socp.py:74-86): min
+    ||A u + b||^2, A (3, 2) and b (3,) normal draws of numpy's
+    default_rng(seed), s.t. u >= -0.5 (lin_cs = I, lin_ds = 0.5)."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, 3, 2)), rng.normal(size=(B, 3)),
+            np.broadcast_to(np.eye(2), (B, 2, 2)).copy(),
+            np.full((B, 2), 0.5))
+
+
+def _qp_cones(dev, qps):
+    from bayesian_cbf_tpu_torch.solvers.qp import qp_socp
+    from bayesian_cbf_tpu_torch.solvers.socp import _pad_cones
+    c, G, h, dims = qp_socp(*(torch.tensor(a, dtype=torch.float32,
+                                           device=dev) for a in qps))
+    Gp, hp = _pad_cones(G, h, dims)
+    return [c.expand(G.shape[0], -1).contiguous(), Gp.contiguous(),
+            hp.contiguous()]
+
+
+def _qp_against_slsqp(dev, card, qps, n=16):
+    """`solve_qp_active_set` on the QPs `qps` through its entry point on
+    the card (one launch at (3, 3, 4)), in plain f32 and f64 on the host,
+    each against `scipy.optimize.minimize(SLSQP)` with ftol 1e-15 (at its
+    default ftol of 1e-6 SLSQP itself sits up to 1.8e-3 from the optimum:
+    CPU, an enumeration of the active sets).  Held: f64 on the first n
+    within JAX's atol of 1e-4; the kernel's median and 90th-percentile
+    distance over all within max(2x plain f32's, 1e-4).  In f32 the
+    epigraph's flat optimum leaves u up to ~1e-2 from it (plain f32 8e-2
+    at worst of 256 on the CPU), so no single problem is held.  Returns
+    the launch counts."""
+    from scipy.optimize import minimize
+    from bayesian_cbf_tpu_torch.solvers.qp import solve_qp_active_set
+    A, b, cs, ds = qps
+    B = A.shape[0]
+    ref = np.stack([minimize(
+        lambda v, i=i: np.sum((A[i] @ v + b[i]) ** 2), np.zeros(2),
+        method="SLSQP", constraints=[{"type": "ineq",
+                                      "fun": lambda v, i=i: cs[i] @ v + ds[i]}],
+        options={"ftol": 1e-15, "maxiter": 500}).x for i in range(B)])
+    run = lambda device, dtype, k=B: solve_qp_active_set(*(
+        torch.tensor(a[:k], dtype=dtype, device=device)
+        for a in (A, b, cs, ds)))
+    (u_k, _), _, counts, _ = _counted(lambda: run(dev, torch.float32))
+    dist = lambda u: np.abs(u.double().cpu().numpy() - ref[:len(u)]).max(-1)
+    d_k, d_p = dist(u_k), dist(run("cpu", torch.float32)[0])
+    e_64 = float(dist(run("cpu", torch.float64, n)[0]).max())
+    q = lambda d: np.quantile(d, [0.5, 0.9])
+    qk, qp = q(d_k), q(d_p)
+    print(f"[qp (3, 3, 4)] solve_qp_active_set on {B} QPs against SLSQP "
+          f"(ftol 1e-15), |u - u_slsqp| median / p90 / max: kernel "
+          f"{qk[0]:.3e} / {qk[1]:.3e} / {d_k.max():.3e}, plain f32 "
+          f"{qp[0]:.3e} / {qp[1]:.3e} / {d_p.max():.3e}; f64 on the first "
+          f"{n}: max {e_64:.3e} (bars: f64 1e-4, the kernel's median and "
+          f"p90 within max(2x plain f32's, 1e-4)); launches {counts} on "
+          f"{card}", flush=True)
+    _require(e_64 <= 1e-4, f"qp: f64 {e_64} from SLSQP")
+    _require(all(k <= max(2.0 * p, 1e-4) for k, p in zip(qk, qp)),
+             f"qp: kernel {qk} against plain f32 {qp}")
+    _require(counts == {**dict.fromkeys(bt.counters(), 0), "ipm": 1},
+             f"qp: launch counts {counts}")
+    return counts
+
+
+def _clc_episode(dev, card, relax, steps):
+    """One B = 1 pendulum episode (phase 7's configuration, seed 0) with
+    the stability cone of `_pendulum_clc`, cut to `steps` steps (depth
+    only: the schedules stay the 250-step episode's): the CLC's terms go
+    through the GP expression path each step.  Finite, launches held to
+    the refits inside those steps.  Returns the launch counts."""
+    from bayesian_cbf_tpu_torch.experiments import pendulum as tp
+    label = f"pendulum clc {'relaxed' if relax else 'unrelaxed'}"
+    sim = tp.make_pendulum_online_sim(max_train=200, device=dev)
+    sim = sim._replace(numSteps=steps, clc_fn=_pendulum_clc(sim, relax),
+                       controller=sim.controller._replace(cbc_relax=relax))
+    out, wall, counts, rungs = _counted(lambda: tp.run_pendulum_online_learning(
+        sim, generator=torch.Generator(device=dev).manual_seed(0)))
+    want = _expected_launches(sim.learned, steps, False)
+    finite = bool(torch.isfinite(out.X).all() and torch.isfinite(out.U).all())
+    print(f"[{label}] B=1 K=200 T={steps}: wall {wall:.3f} s "
+          f"({wall * 1e3 / steps:.3f} ms per step, fits included) on {card}; "
+          f"launches {counts} (schedule {want}); accepted rungs {rungs}; "
+          f"finite {finite}; feasible "
+          f"{float(out.info.feasible.float().mean()):.4f}, certified "
+          f"{float(out.info.certified.float().mean()):.4f}, mean delta "
+          f"{float(out.info.delta.mean()):.4f}, theta_end "
+          f"{float(out.X[-1, 0]):.4f}", flush=True)
+    _require(counts == want, f"{label}: launch counts {counts} != {want}")
+    _require(finite, f"{label}: non-finite episode")
+    return counts
+
+
+def _binary_log(dev, card, bayes_out):
+    """(c) Phase 7's bayes_cbf episode logged through the JSONL and the
+    binary backends (the native writer, built from native/fastlog.cpp
+    with g++ into build/): the same tags and steps, and each value of the
+    binary log the float32 of the JSONL one, flattened; the time of
+    each, and of the writer's build before them."""
+    import tempfile
+    from bayesian_cbf_tpu_torch.experiments import unicycle as tu
+    from bayesian_cbf_tpu_torch.observability.fastlog import (
+        load_native, native_library_path)
+    from bayesian_cbf_tpu_torch.observability.logger import (MetricsLogger,
+                                                              load_metrics)
+    sim = tu.make_ackermann_tracking_sim(**tu.EXPERIMENTS["bayes_cbf"],
+                                         device=dev)
+    t0 = time.perf_counter()
+    load_native()
+    build = time.perf_counter() - t0
+    logs, walls = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in ("jsonl", "binary"):
+            t0 = time.perf_counter()
+            lg = MetricsLogger(tmp, [backend], backend=backend,
+                               config={"name": "bayes_cbf"})
+            lg.log_rollout(bayes_out, sim=sim)
+            lg.close()
+            walls[backend] = time.perf_counter() - t0
+            logs[backend] = load_metrics(lg.dir)
+    js, bn = logs["jsonl"], logs["binary"]
+    same = sorted(js) == sorted(bn)
+    records = 0
+    for tag in js if same else ():
+        s_j, v_j = zip(*js[tag])
+        s_b, v_b = zip(*bn[tag])
+        records += len(s_j)
+        # a binary record is the step's value flattened
+        flat = lambda v: np.asarray(v, np.float32).reshape(len(v), -1)
+        same = same and s_j == s_b and np.array_equal(flat(v_j), flat(v_b))
+    print(f"[binary log] phase 7's bayes_cbf episode: {len(js)} tags, "
+          f"{records} records; JSONL {walls['jsonl']:.3f} s, binary "
+          f"{walls['binary']:.3f} s (native writer "
+          f"{native_library_path().name}, built with g++ in {build:.3f} s "
+          f"before) on {card}; the "
+          f"binary log reads back as the float32 of the JSONL one: {same}",
+          flush=True)
+    _require(same, "binary log: the two backends disagree")
+
+
+def _profile_trace(run, top_level):
+    """decompose_trace of `run()` inside `trace` and `annotate(top_level)`
+    (after one unprofiled call)."""
+    import tempfile
+    from bayesian_cbf_tpu_torch.observability.profiling import (
+        annotate, decompose_trace, trace)
+    run()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as path:
+            with annotate(top_level):
+                run()
+                torch.cuda.synchronize()
+        return decompose_trace(path, top_level=top_level)
+
+
+def _profiles(dev, card, x0s):
+    """(d) 20 steps of the main batch and 20 serving ticks of the learning
+    configuration through `trace` / `annotate` / `decompose_trace`: device
+    time by kernel bucket and the idle share dispatch_gap_s / span_s; then
+    `CompiledController.cost_analysis()` of one tick.  Both
+    decompositions must name the IPM."""
+    from bayesian_cbf_tpu_torch.deploy import CompiledController
+    from bayesian_cbf_tpu_torch.experiments import unicycle as tu
+    from bayesian_cbf_tpu_torch.sim.rollout import simulate_unicycle_batch
+    steps = 20
+    sim = bt.unicycle_sim(dev)._replace(numSteps=steps)
+    main = _profile_trace(lambda: simulate_unicycle_batch(
+        sim, x0s, torch.Generator(device=dev).manual_seed(1)), "steps")
+    ctl = CompiledController(
+        tu.make_ackermann_tracking_sim(**tu.EXPERIMENTS["learning"],
+                                       device=dev), tu.STATE_START,
+        torch.Generator(device=dev).manual_seed(0), device=dev)
+    ticks = _profile_trace(lambda: [ctl.tick() for _ in range(steps)],
+                           "ticks")
+    cost = ctl.cost_analysis()
+    fmt = lambda d: {k: round(v * 1e3, 4) for k, v in d.items()}
+    for label, d, n in (("main batch, B=256", main, steps),
+                        ("serving ticks, B=1", ticks, steps)):
+        print(f"[profile {label}] {n} steps: span {d['span_s'] * 1e3:.3f} "
+              f"ms, device busy {d['leaf_busy_s'] * 1e3:.3f} ms, idle share "
+              f"{d['dispatch_gap_s'] / d['span_s']:.4f}; device ms by bucket "
+              f"{fmt(d['by_bucket'])} (fit {fmt(d['fit'])}) on {card}",
+              flush=True)
+        _require("ipm" in d["by_bucket"], f"profile {label}: no ipm bucket "
+                 f"({d['by_bucket']})")
+    top = sorted(cost["kernels"].items(), key=lambda kv: -kv[1]["device_ms"])
+    print(f"[cost_analysis] one serving tick: wall {cost['wall_ms']:.3f} ms "
+          f"(profiled), {cost['launches']} kernels, {cost['device_ms']:.4f} "
+          f"ms of device time, {cost['flops']} profiler flops; largest "
+          f"{[(k, round(v['device_ms'], 4), v['launches']) for k, v in top[:4]]}",
+          flush=True)
+    _require(any("ipm_kernel" in k for k in cost["kernels"]),
+             "cost_analysis: no IPM kernel in the tick")
+    return dict(main=main, serving=ticks)
+
+
+def phase_options_observability(dev, card, cones, px0s, x0s, outcome_outs):
+    """Phase 12: (b) the unrelaxed pendulum batch, (a) the IPM at its four
+    new shapes (on that batch's fitted cones and 256 QPs, each also on
+    random cones, at B = 1 and on a ragged batch; the QP against SLSQP),
+    the two B = 1 CLC episodes, (c) the binary log and the console with
+    --log-backend binary, (d) the profiles.  Returns the IPM checks and
+    the launch counts per run."""
+    t0 = time.perf_counter()
+    runs = {}
+    runs["pendulum unrelaxed"], sim, out = _unrelaxed_batch(dev, card, px0s)
+    real = _pendulum_option_cones(dev, sim, out)
+    real[QP_DIMS] = _qp_cones(dev, _qp_problems(256, 23))
+    ipm = {}
+    for i, dims in enumerate((UNRELAXED_DIMS, UNRELAXED_CLC_DIMS,
+                              RELAXED_CLC_DIMS, QP_DIMS)):
+        B, C, d, nx = real[dims][1].shape
+        label = f"({nx}, {C}, {d})"
+        kind = "qp" if dims == QP_DIMS else "real"
+        ipm[label] = _check_ipm_kernel(
+            dev, label, cones(256, 31 + 2 * i, nx=nx, dims=dims), real[dims],
+            cones(1003, 32 + 2 * i, nx=nx, dims=dims), dims, kind)
+        ipm[label]["b1"] = _check_ipm_b1(dev, label, real[dims], dims, kind)
+    runs["qp"] = _qp_against_slsqp(dev, card, _qp_problems(256, 23))
+    runs["pendulum clc relaxed"] = _clc_episode(dev, card, True, 50)
+    runs["pendulum clc unrelaxed"] = _clc_episode(dev, card, False, 20)
+    _binary_log(dev, card, outcome_outs["bayes_cbf"][0])
+    _cli_subprocess("binary")
+    _profiles(dev, card, x0s)
+    print(f"[phase 12] {time.perf_counter() - t0:.1f} s", flush=True)
+    return ipm, runs
+
+
 def main():
     dev, card = phase_device()
     phase_build()
@@ -2738,7 +3098,8 @@ def main():
     sweep = _check_sweep_kernel(dev)
     dinv = _check_chol_dinv_kernel(dev)
     solve = _check_cholsolve_kernels(dev)
-    main_path, main_rungs, out = run_config(dev, card, "main", reps=1)
+    # one cold rollout, as the pendulum runs: the run's time limit
+    main_path, main_rungs, out = run_config(dev, card, "main")
     configs = dict(main={}, a=dict(fit_inverse="chol", linv_assembly="row"),
                    b=dict(fit_inverse="sweep_full"), c=dict(fused_gram=True))
     abc = {k: run_config(dev, card, f"config {k}", **configs[k])
@@ -2764,6 +3125,9 @@ def main():
     for key in ("kinv_logdet", "chol_linv"):
         chol[key].update({shape: v[key] for shape, v in chol11.items()})
     runs.update(runs11)
+    ipm12, runs12 = phase_options_observability(dev, card, cones, px0s, x0s,
+                                                outcome_outs)
+    runs.update(runs12)
 
     def entry(name, source, replaces, run, stats, counter=None):
         counter = counter or name
@@ -2790,6 +3154,14 @@ def main():
               ipm_free, counter="ipm"),
         entry("ipm (3, 5, 4)", "ipm_exact.cu", "pallas_ipm.py:48",
               "car ground truth", ipm_car, counter="ipm"),
+        entry("ipm (3, 2, 3)", "ipm.cu", "pallas_ipm.py:48",
+              "pendulum unrelaxed", ipm12["(3, 2, 3)"], counter="ipm"),
+        entry("ipm (3, 3, 3)", "ipm.cu", "pallas_ipm.py:48",
+              "pendulum clc unrelaxed", ipm12["(3, 3, 3)"], counter="ipm"),
+        entry("ipm (4, 4, 3)", "ipm.cu", "pallas_ipm.py:48",
+              "pendulum clc relaxed", ipm12["(4, 4, 3)"], counter="ipm"),
+        entry("ipm (3, 3, 4)", "ipm.cu", "pallas_ipm.py:48", "qp",
+              ipm12["(3, 3, 4)"], counter="ipm"),
         entry("chol_dinv", "chol_blocked.cu", "pallas_chol.py:105", "a", dinv),
         entry("sweep", "sweep.cu", "pallas_sweep.py:203", "b", sweep),
         entry("gram", "gram.cu", "gram.py:54", "c", gram),

@@ -761,10 +761,15 @@ def test_ipm_rejects_what_the_kernel_cannot_read(cuda):
 # (4, 2, 4) at four
 WIDE_SHAPES = [(3, (3, 1, 1, 1, 1)), (4, (4, 1, 1, 1, 1, 1)), (4, (4, 4)),
                (3, (4, 1, 1, 1, 1))]
+# the options' instantiations, four lanes a problem: the pendulum
+# controller with hard CBC2 cones (3, 2, 3), with a CLC (3, 3, 3), relaxed
+# with a CLC (4, 4, 3), and solve_qp_active_set's lifted QP (3, 3, 4)
+OPTION_SHAPES = [(3, (3, 3)), (3, (3, 3, 3)), (4, (3, 3, 1, 3)),
+                 (3, (4, 1, 1))]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nx,dims", WIDE_SHAPES)
+@pytest.mark.parametrize("nx,dims", WIDE_SHAPES + OPTION_SHAPES)
 @pytest.mark.parametrize("B", [1, 3, 256, 1003])
 def test_ipm_group_width_shapes_match_plain(cuda, B, nx, dims):
     """Batches cut from one set of 1003 random problems of the shape, one
@@ -817,7 +822,8 @@ def test_ipm_raises_on_an_uninstantiated_shape(cuda):
     lib = _build.load("ipm")
     shapes = ik.instantiated_shapes()
     assert {(4, 4, 4), (4, 3, 3), (3, 5, 3), (4, 6, 4), (4, 2, 4),
-            (3, 5, 4)} <= set(shapes)
+            (3, 5, 4), (3, 2, 3), (3, 3, 3), (4, 4, 3), (3, 3, 4)} \
+        <= set(shapes)
     for nx, C, d in shapes:
         assert ik.group_width(nx, C, d) in (4, 8)
         assert C <= ik.group_width(nx, C, d)
@@ -826,6 +832,55 @@ def test_ipm_raises_on_an_uninstantiated_shape(cuda):
     assert lib.ipm_launch(*(a.data_ptr() for a in args + out), 4, 4, 9, 4,
                           5, 1e-10,
                           torch.cuda.current_stream(cuda).cuda_stream) != 0
+
+
+@pytest.mark.cuda
+def test_qp_and_option_controllers_on_the_card(cuda):
+    """solve_qp_active_set at (3, 3, 4) and one pendulum control step with
+    hard cones and a CLC at (3, 3, 3) on the card, in f32 against the same
+    in f64 on the CPU: the QP's u within 1e-2 (f32 IPM on the epigraph
+    cone), the control step's u where both are feasible within 1e-2
+    relative, one IPM launch each."""
+    from bayesian_cbf_tpu_torch.control import learned_socp_controller as lsc
+    from bayesian_cbf_tpu_torch.experiments import pendulum as tp
+    from bayesian_cbf_tpu_torch.solvers.qp import solve_qp_active_set
+    rng = np.random.default_rng(3)
+    qp = (rng.normal(size=(8, 3, 2)), rng.normal(size=(8, 3)),
+          np.broadcast_to(np.eye(2), (8, 2, 2)).copy(), np.full((8, 2), 0.5))
+    before = ik.ipm.launches
+    u, sol = solve_qp_active_set(*(torch.tensor(a, dtype=torch.float32,
+                                                device=cuda) for a in qp))
+    assert ik.ipm.launches == before + 1
+    assert tuple(sol.z.shape) == (8, 3, 4)
+    u64, _ = solve_qp_active_set(*(torch.tensor(a) for a in qp))
+    assert float((u.double().cpu() - u64).abs().max()) < 1e-2
+    out = {}
+    for dev, dt in ((cuda, torch.float32), ("cpu", torch.float64)):
+        sim = tp.make_pendulum_online_sim(max_train=8, device=dev, dtype=dt)
+        lrn = sim.learned
+        st = _to(lrn.init_state(4, torch.Generator().manual_seed(0), "cpu",
+                                dt), dev)
+        x = torch.tensor([[2.0, 0.1], [1.9, -0.3], [2.2, 0.5], [1.7, 0.0]],
+                         dtype=dt, device=dev)
+        cfg = sim.controller._replace(cbc_relax=False, debug_cones=True)
+        u_ref = torch.full((4, 1), 0.3, dtype=dt, device=dev)
+        out[dt] = lsc.learned_socp_control(
+            cfg, (sim.cbf,), lrn.moment_derivatives(st, x), u_ref, x, u_ref,
+            state=st, clc_fn=lsc.norm2_clc(lrn.f_gp_and_fu_gp, 2, 1.0, 0.01))
+    (u32, i32), (u64, i64) = out[torch.float32], out[torch.float64]
+    assert tuple(i32.G.shape) == (4, 9, 3)
+    both = i32.feasible.cpu() & i64.feasible
+    assert bool(torch.equal(i32.certified.cpu(), i32.feasible.cpu()))
+    assert float(((u32.double().cpu() - u64).abs()
+                  / (1.0 + u64.abs()))[both].max(initial=0.0)) < 1e-2
+
+
+def _to(tree, dev):
+    """A tree of tensors (NamedTuples, tuples; None leaves) on `dev`."""
+    if tree is None or isinstance(tree, torch.Tensor):
+        return None if tree is None else tree.to(dev)
+    return type(tree)(*(_to(a, dev) for a in tree)) \
+        if hasattr(tree, "_fields") else type(tree)(_to(a, dev) for a in tree)
 
 
 def _car_cones(cuda, B, seed):
