@@ -26,6 +26,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..gp.algebra import DeterministicGP
+from ..observability import tracing
 from ..safety.cbc import (cbc1_safety_factor, cbc2_quadratic_terms,
                           cbc_to_socp_cone)
 from ..solvers.socp import solve_socp
@@ -148,6 +149,7 @@ def chance_constraint_margins(cfg: BayesCLFControllerConfig, clf, cbfs,
         * torch.linalg.vector_norm(nv, dim=-1)[:, None]
 
 
+@tracing.spanned("cones")
 def controller_socp(cfg: BayesCLFControllerConfig, clf, cbfs, planner,
                     moments, x, t: int):
     """The batch of step-t SOCPs: (cobj (nvar,), G (B, M, nvar), h (B, M),
@@ -188,6 +190,13 @@ def controller_socp(cfg: BayesCLFControllerConfig, clf, cbfs, planner,
     return cobj, torch.cat(G_rows, 1), torch.cat(h_rows, 1), tuple(dims), terms
 
 
+def count_gate(feasible) -> None:
+    """The feasibility gate's counters: episode-steps gated, and those
+    that took the fallback control."""
+    tracing.count("controller.episodes", feasible.shape[0])
+    tracing.count("controller.fallbacks", torch.logical_not, feasible)
+
+
 def bayes_clf_control(cfg: BayesCLFControllerConfig, clf, cbfs, planner,
                       moments, x, t: int, warm=None):
     """One control step for a batch of episodes via closed-form cones.
@@ -211,6 +220,7 @@ def bayes_clf_control(cfg: BayesCLFControllerConfig, clf, cbfs, planner,
     feas_tol = (cfg.feas_tol if dtype == torch.float64
                 else max(cfg.feas_tol, 5e-3))
     feasible = (sol.pres < feas_tol) & torch.isfinite(sol.x).all(-1)
+    count_gate(feasible)
     u_opt = torch.where(feasible[:, None], sol.x[:, :m],
                         uref.expand(batch, m))
     info = ControlInfo(
@@ -270,38 +280,40 @@ def bayes_clf_control_gp(cfg: BayesCLFControllerConfig, clf, cbfs, planner,
     batch, n = x.shape
     rho, _, uref, cobj, G_obj, h_obj = _constants(cfg, len(cbfs), dtype,
                                                   device)
-    goal = planner.plan(t).expand(batch, n)
-    dplan = planner.dot_plan(t).expand(batch, n)
-    u0 = torch.full((m,), 0.5, dtype=dtype, device=device)
+    with tracing.span("cones"):
+        goal = planner.plan(t).expand(batch, n)
+        dplan = planner.dot_plan(t).expand(batch, n)
+        u0 = torch.full((m,), 0.5, dtype=dtype, device=device)
 
-    def one(x1, goal1, dplan1, st):
-        fu = lambda u: fu_gp_fn(st, u)
-        clc = cbc2_quadratic_terms(
-            lambda u: _clc_gp(cfg, clf, fu, n, goal1, dplan1, u) * (-1.0),
-            x1, u0)
-        cbcs = [cbc2_quadratic_terms(
-            lambda u, cbf=cbf, gamma=gamma: _cbc_gp(cbf, gamma, fu, n, u),
-            x1, u0) for cbf, gamma in zip(cbfs, cfg.cbf_gammas)]
-        return clc, cbcs
+        def one(x1, goal1, dplan1, st):
+            fu = lambda u: fu_gp_fn(st, u)
+            clc = cbc2_quadratic_terms(
+                lambda u: _clc_gp(cfg, clf, fu, n, goal1, dplan1, u) * (-1.0),
+                x1, u0)
+            cbcs = [cbc2_quadratic_terms(
+                lambda u, cbf=cbf, gamma=gamma: _cbc_gp(cbf, gamma, fu, n, u),
+                x1, u0) for cbf, gamma in zip(cbfs, cfg.cbf_gammas)]
+            return clc, cbcs
 
-    clc, cbcs = torch.func.vmap(
-        one, in_dims=(0, 0, 0, None if state is None else 0))(
-            x, goal, dplan, state)
-    G_rows = [G_obj.expand(batch, -1, -1)]
-    h_rows = [h_obj.expand(batch, -1)]
-    dims = [m + 2]
-    for i, ((bfe, e), (V, bfv, v), _, _) in enumerate([clc] + cbcs):
-        # the CLC (first) takes the relax slack
-        A, b, bfc, d = cbc_to_socp_cone(bfe, e, V, bfv, v, extravars=2,
-                                        relax_col=0 if i == 0 else -1)
-        G_rows.append(torch.cat([-bfc[:, None], -rho * A], 1))
-        h_rows.append(torch.cat([d[:, None], rho * b], 1))
-        dims.append(m + 2)
+        clc, cbcs = torch.func.vmap(
+            one, in_dims=(0, 0, 0, None if state is None else 0))(
+                x, goal, dplan, state)
+        G_rows = [G_obj.expand(batch, -1, -1)]
+        h_rows = [h_obj.expand(batch, -1)]
+        dims = [m + 2]
+        for i, ((bfe, e), (V, bfv, v), _, _) in enumerate([clc] + cbcs):
+            # the CLC (first) takes the relax slack
+            A, b, bfc, d = cbc_to_socp_cone(bfe, e, V, bfv, v, extravars=2,
+                                            relax_col=0 if i == 0 else -1)
+            G_rows.append(torch.cat([-bfc[:, None], -rho * A], 1))
+            h_rows.append(torch.cat([d[:, None], rho * b], 1))
+            dims.append(m + 2)
     sol = solve_socp(cobj, torch.cat(G_rows, 1), torch.cat(h_rows, 1),
                      tuple(dims), iters=cfg.socp_iters)
     feas_tol = (cfg.feas_tol if dtype == torch.float64
                 else max(cfg.feas_tol, 5e-3))
     feasible = (sol.pres < feas_tol) & torch.isfinite(sol.x).all(-1)
+    count_gate(feasible)
     u_opt = torch.where(feasible[:, None], sol.x[:, :m],
                         uref.expand(batch, m))
     stack = lambda i: (torch.stack([c[i] for c in cbcs], 1) if cbcs

@@ -28,10 +28,12 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..gp.algebra import DeterministicGP
+from ..observability import tracing
 from ..safety.cbc import (cbc2_closed_form_terms, cbc2_gp_terms,
                           cbc2_safety_factor, cbc_to_socp_cone,
                           gp_quadratic_terms)
 from ..solvers.socp import solve_socp
+from .bayes_controller import count_gate
 
 
 class LearnedSOCPControllerConfig(NamedTuple):
@@ -134,6 +136,7 @@ def norm2_clc(pair_fn: Callable, x_dim: int, gamma: float = 1.0,
     return clc
 
 
+@tracing.spanned("cones")
 def learned_socp_cones(cfg: LearnedSOCPControllerConfig, cbfs, mder,
                        u_ref, x, pair_fn: Optional[Callable] = None,
                        state=None, clc_fn: Optional[Callable] = None):
@@ -215,6 +218,7 @@ def learned_socp_control(cfg: LearnedSOCPControllerConfig, cbfs, mder,
     f64 = x.dtype == torch.float64
     feasible = (sol.pres < (1e-4 if f64 else 5e-3)) \
         & torch.isfinite(sol.x).all(-1)
+    count_gate(feasible)
     u = torch.where(feasible[:, None], sol.x[:, :m], u_fallback)
     if cfg.cbc_relax:
         slack = sol.x[:, m + 2]

@@ -14,6 +14,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..observability import tracing
 from ..utils.func import epsilon_interp
 from ..utils.linalg import cho_solve_small_unrolled, chol_small_unrolled
 from .clf_cbf import cartesian2polar
@@ -52,6 +53,7 @@ class LQRController(NamedTuple):
     dt: float
     ctrl_range: Tuple[float, float] = (-15.0, 15.0)
 
+    @tracing.spanned("lqr")
     def control_with_model(self, dfdx, gx, x):
         """dfdx (B, n, n): the model's drift Jacobian at x; gx (B, n, m):
         its actuation at x.  Returns u (B, m)."""

@@ -27,6 +27,7 @@ from ..models.dynamics import (LearnedDynState, LearnedShiftInvariantDynamics,
                                PendulumDynamics, ZeroDynamics, where_tree)
 from ..models.cogp import CoGP, make_cogp, make_cogp_diag
 from ..models.mvgp import make_mvgp, make_mvgp_diag
+from ..observability import tracing
 from ..sim.rollout import _stack_steps, first_episode, fit_segments
 from ..solvers.socp import solve_socp
 
@@ -138,26 +139,28 @@ def run_pendulum_online_batch(sim: PendulumOnlineSim, x0s,
     for (s, e, do_fit) in fit_segments(sim.numSteps, lrn.train_every_n_steps,
                                        lrn.enable_learning):
         for t in range(s, e):
-            mder = lrn.moment_derivatives(states, X)
-            M, dM = mder[0], mder[1]
-            u_lqr = sim.lqr.control_with_model(dM[:, :, 0, :], M[:, :, 1:],
-                                               X)
-            uni = noise[t] if noise is not None else torch.rand(
-                u_lqr.shape, generator=generator, dtype=X.dtype,
-                device=X.device)
-            u_ref = sim.egreedy.perturb(u_lqr, t, uni)
-            u, info = learned_socp_control(
-                sim.controller, (sim.cbf,), mder, u_ref, X, u_fallback=u_lqr,
-                pair_fn=lrn.f_gp_and_fu_gp, state=states, clc_fn=sim.clc_fn)
-            states = lrn.record(states, X, u,
-                                j=None if draws is None else draws[t],
-                                generator=generator)
-            X_next, xdot = sim.true_dynamics.step(X, u, sim.dt)
+            with tracing.span("step"):
+                mder = lrn.moment_derivatives(states, X)
+                M, dM = mder[0], mder[1]
+                u_lqr = sim.lqr.control_with_model(dM[:, :, 0, :],
+                                                   M[:, :, 1:], X)
+                uni = noise[t] if noise is not None else torch.rand(
+                    u_lqr.shape, generator=generator, dtype=X.dtype,
+                    device=X.device)
+                u_ref = sim.egreedy.perturb(u_lqr, t, uni)
+                u, info = learned_socp_control(
+                    sim.controller, (sim.cbf,), mder, u_ref, X,
+                    u_fallback=u_lqr, pair_fn=lrn.f_gp_and_fu_gp,
+                    state=states, clc_fn=sim.clc_fn)
+                states = lrn.record(states, X, u,
+                                    j=None if draws is None else draws[t],
+                                    generator=generator)
+                X_next, xdot = sim.true_dynamics.step(X, u, sim.dt)
             ys.append((X, u, xdot, info))
             X = X_next
         if do_fit:
             fit = lrn.fit_now_first if fit_event == 0 else lrn.fit_now_warm
-            with torch.profiler.record_function("fit"):
+            with tracing.span("fit"):
                 states = where_tree(states.count_res > 0, fit(states),
                                     states)
             fit_event += 1

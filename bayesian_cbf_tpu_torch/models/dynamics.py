@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..gp.algebra import DeterministicGP, LeafGP
+from ..observability import tracing
 from ..utils.func import normalize_radians
 from ..utils.linalg import kron
 from .mvgp import MVGP, MVGPCache, MVGPData, MVGPParams
@@ -344,6 +345,7 @@ class LearnedShiftInvariantDynamics(NamedTuple):
 
     # ------------------------------------------------------------ predict
 
+    @tracing.spanned("moments")
     def moments(self, state: LearnedDynState, x):
         """Posterior moments (FT (B, n, 1+m), Bk (B, 1+m, 1+m), A (B, n, n))
         with vec F(x) ~ N(vec FT^T, Bk kron A)."""
@@ -367,6 +369,7 @@ class LearnedShiftInvariantDynamics(NamedTuple):
         Bk = torch.eye(1 + self.gp.u_dim, dtype=x.dtype, device=x.device)
         return Bk.expand(batch, -1, -1), A.expand(batch, -1, -1)
 
+    @tracing.spanned("moments")
     def moment_derivatives(self, state: LearnedDynState, x):
         """Posterior moments with their x-derivatives at states x (B, n),
         everything a relative-degree-2 chance constraint needs, from one

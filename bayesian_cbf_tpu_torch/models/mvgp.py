@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..observability import tracing
 from ..utils.linalg import (cho_solve_small_unrolled, kron,
                             psd_chol_small_ladder)
 
@@ -42,7 +43,9 @@ def adam_fit(loss_fn, params, training_iter: int, lr: float = 0.1,
     or the new parameters are not finite.  `params` is a NamedTuple of
     tensors.  batched: every leaf has a leading episode axis, loss_fn
     returns one loss per episode (B,), and the steps are taken and
-    rejected per episode; else loss_fn returns a scalar."""
+    rejected per episode; else loss_fn returns a scalar.  Counts the
+    episode-iterations in `adam.episode_iters` and the rejected ones in
+    `adam.rejected` (`observability.tracing`)."""
     b1, b2, eps = 0.9, 0.999, 1e-8
     boundaries = sorted({int(f * training_iter): 0.1
                          for f in (0.3, 0.6, 0.8, 0.9)}.items())
@@ -53,6 +56,7 @@ def adam_fit(loss_fn, params, training_iter: int, lr: float = 0.1,
     batch = p[0].shape[:lead]
     dtype = p[0].dtype
     count = torch.zeros(batch, dtype=torch.int32, device=p[0].device)
+    tracing.count("adam.episode_iters", batch.numel() * training_iter)
 
     def per_ep(mask_b, a):
         return mask_b.reshape(mask_b.shape + (1,) * (a.ndim - lead))
@@ -94,6 +98,7 @@ def adam_fit(loss_fn, params, training_iter: int, lr: float = 0.1,
         nu = [torch.where(per_ep(ok, v_), v_n, v_)
               for v_, (_, _, v_n) in zip(nu, new)]
         count = torch.where(ok, count_inc, count)
+        tracing.count("adam.rejected", torch.logical_not, ok)
     return type(params)(*p)
 
 
@@ -323,12 +328,13 @@ class MVGP(NamedTuple):
         eye = _eye_like(Kb.shape[-1], Kb)
         return Kb * (m[:, :, None] * m[:, None, :]) + eye * (1.0 - m)[:, :, None]
 
-    def factor_ladder(self, K):
+    def factor_ladder(self, K, counts: bool = True):
         """(L, L^{-1}) of the masked Gram K (B, k, k) by the three-rung
         scale-aware jitter ladder (K, + 1e-5 scale, + 1e-2 scale more),
         selected per episode: a rung is accepted only when its factor is
         finite and max|Linv| < 1e6 (f32) / 1e12 (f64).  Also returns the
-        episodes per accepted rung, a (3,) integer tensor on K's device."""
+        episodes per accepted rung, a (3,) integer tensor on K's device
+        (None with counts False)."""
         from ..ops.cholinv import chol_inv_fwd
         eye = _eye_like(K.shape[-1], K)
         scale = torch.clamp(torch.mean(torch.abs(torch.diagonal(
@@ -354,6 +360,8 @@ class MVGP(NamedTuple):
         L3, Linv3 = chol_inv_fwd(K + (bump1 + bump2) * eye, asm)
         L = torch.where(ok2, L, L3)
         Linv = torch.where(ok2, Linv, Linv3)
+        if not counts:
+            return L, Linv, None
         # ok implies ok2: an accepted first rung is kept as it is
         n_ok, n_ok2 = ok.sum(), ok2.sum()
         return L, Linv, torch.stack([n_ok, n_ok2 - n_ok,
@@ -361,14 +369,14 @@ class MVGP(NamedTuple):
 
     def refresh_cache(self, params: MVGPParams, data: MVGPData) -> MVGPCache:
         """Factor the masked Gram (`factor_ladder`) and precompute
-        alpha = Kb^{-1} Y and Linv = L^{-1}.  The episodes per accepted rung
-        are added to `MVGP.refresh_cache.rungs`, a (3,) tensor (None until
-        the first refresh), without a host sync: set it to None before a
-        run and read it after, like a kernel wrapper's `launches`."""
-        L, Linv, rungs = self.factor_ladder(self.masked_kb(params, data))
-        seen = MVGP.refresh_cache.rungs
-        MVGP.refresh_cache.rungs = rungs if seen is None \
-            else seen + rungs.to(seen.device)
+        alpha = Kb^{-1} Y and Linv = L^{-1}.  While a recording is open
+        (`observability.tracing`), the episodes per accepted rung are
+        counted in `refresh.rung0` .. `refresh.rung2`."""
+        L, Linv, rungs = self.factor_ladder(self.masked_kb(params, data),
+                                            counts=tracing.enabled())
+        if rungs is not None:
+            for i in range(3):
+                tracing.count(f"refresh.rung{i}", rungs[i])
         Y = self.residual_Y(params, data)
         alpha = Linv.transpose(-1, -2) @ (Linv @ Y)
         return MVGPCache(L=L, alpha=alpha, Linv=Linv)
@@ -588,9 +596,6 @@ class MVGP(NamedTuple):
                                             inv_row)[:, None], cache.Linv)
         alpha = torch.where(wr[:, None, None], alpha_cand, cache.alpha)
         return MVGPCache(L=L, alpha=alpha, Linv=Linv)
-
-
-MVGP.refresh_cache.rungs = None
 
 
 def make_mvgp(x_dim: int, u_dim: int, **kw) -> MVGP:

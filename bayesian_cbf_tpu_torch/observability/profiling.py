@@ -3,14 +3,13 @@
   * `trace(logdir)`: a context manager that profiles the enclosed block
     (host operations, and the card's kernels where CUDA is available)
     and writes a Chrome trace to <logdir>/trace.json when it exits;
-  * `annotate(name)`: a named region of that timeline
-    (`torch.profiler.record_function`); the runners mark their refits
-    `annotate("fit")`;
-  * `step_timer(fn, *args)`: best-of-reps wall seconds of one call, each
-    fenced by `torch.cuda.synchronize` when the result lies on a card;
+  * `annotate(name)`: a named region of that timeline, the tracer's
+    `span` (`observability/tracing.py`; the runners mark their steps
+    "step" and their refits "fit");
   * `elapsed_channel(logger, tag, seconds)`: an `<exp>/elapsed` scalar;
-  * `decompose_trace(path)`: a trace's device time by kernel bucket, its
-    busy time and the gap the host leaves between kernels, in a region.
+  * `decompose_trace(path)`: a trace's device time by kernel bucket and
+    by span, its busy time and the gap the host leaves between kernels,
+    in a region.
 """
 from __future__ import annotations
 
@@ -18,10 +17,10 @@ import contextlib
 import gzip
 import json
 import os
-import time
-from typing import Callable
 
 import torch
+
+from . import tracing
 
 
 def _activities():
@@ -49,39 +48,7 @@ def trace(logdir: str, with_flops: bool = False):
 trace.last = None
 
 
-def annotate(name: str):
-    """A named region of the profiler's timeline."""
-    return torch.profiler.record_function(name)
-
-
-def _fence(result):
-    """torch.cuda.synchronize on the device of the first CUDA tensor in
-    `result` (a tensor or a nest of tuples, lists and dicts of them)."""
-    todo = [result]
-    while todo:
-        r = todo.pop()
-        if isinstance(r, torch.Tensor):
-            if r.is_cuda:
-                torch.cuda.synchronize(r.device)
-                return
-        elif isinstance(r, (tuple, list)):
-            todo.extend(r)
-        elif isinstance(r, dict):
-            todo.extend(r.values())
-
-
-def step_timer(fn: Callable, *args, reps: int = 5,
-               warmup: bool = True) -> float:
-    """Best-of-`reps` wall seconds of one call fn(*args), each timed to
-    the end of its device work (the reference's timeit.repeat(min))."""
-    if warmup:
-        _fence(fn(*args))
-    best = float("inf")
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        _fence(fn(*args))
-        best = min(best, time.perf_counter() - t0)
-    return best
+annotate = tracing.span
 
 
 def elapsed_channel(logger, tag: str, seconds: float, step: int = 0) -> None:
@@ -153,15 +120,68 @@ def _regions(evs, name):
             and e.get("cat") == "user_annotation"]
 
 
+def _gaps(intervals, t0, t1):
+    """The (start, end) stretches of [t0, t1] outside the union of the
+    intervals."""
+    out, cur = [], t0
+    for a, b in sorted(intervals):
+        if a > cur:
+            out.append((cur, min(a, t1)))
+        cur = max(cur, b)
+    if cur < t1:
+        out.append((cur, t1))
+    return [(a, b) for a, b in out if b > a]
+
+
+def _span_tree(evs, region):
+    """(start, end, path) of the spans (user annotations) that lie inside
+    the region event, the region first, sorted by start; a path is the
+    names of the spans that hold the span, outermost first."""
+    t0, t1 = region["ts"], region["ts"] + region["dur"]
+    inner = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in evs
+                   if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                   and e is not region and t0 <= e["ts"]
+                   and e["ts"] + e["dur"] <= t1)
+    inner.sort(key=lambda s: (s[0], -s[1]))
+    out = [(t0, t1, region["name"])]
+    stack = [out[0]]
+    for a, b, name in inner:
+        while len(stack) > 1 and stack[-1][1] < b:
+            stack.pop()
+        stack.append((a, b, stack[-1][2] + "/" + name))
+        out.append(stack[-1])
+    return out
+
+
+def _innermost(tree, times):
+    """The path of the innermost span of `tree` (`_span_tree`) holding
+    each of `times`; the region's own where none does."""
+    out = [tree[0][2]] * len(times)
+    stack, i = [], 0
+    for j in sorted(range(len(times)), key=times.__getitem__):
+        x = times[j]
+        while i < len(tree) and tree[i][0] <= x:
+            while stack and stack[-1][1] < tree[i][0]:
+                stack.pop()
+            stack.append(tree[i])
+            i += 1
+        while stack and stack[-1][1] < x:
+            stack.pop()
+        if stack:
+            out[j] = stack[-1][2]
+    return out
+
+
 def decompose_trace(trace_path: str, buckets=DEFAULT_BUCKETS,
                     top_level: str = "steps") -> dict:
     """Device time of a `trace(...)` Chrome trace inside its region
     `top_level` (the longest `annotate(top_level)` region; ties: the
-    latest), by kernel bucket::
+    latest), by kernel bucket and by span::
 
         {"span_s": ..., "leaf_busy_s": ..., "dispatch_gap_s": ...,
          "by_bucket": {bucket: seconds},
-         "fit": {bucket: seconds}, "scan": {bucket: seconds}}
+         "fit": {bucket: seconds}, "scan": {bucket: seconds},
+         "by_span": {path: {"device_s", "idle_s", "launches"}}}
 
     The device events are the trace's kernels (cat "kernel"); a kernel
     belongs to the region when its launch lies inside it.  span_s runs
@@ -169,8 +189,13 @@ def decompose_trace(trace_path: str, buckets=DEFAULT_BUCKETS,
     whichever is later; leaf_busy_s is the time at least one of them
     runs, dispatch_gap_s the rest of the span: the device's idle share
     is dispatch_gap_s / span_s.  "fit" holds the kernels launched inside
-    an `annotate("fit")` region, "scan" the others.  Raises ValueError
-    when the trace has no such region."""
+    an `annotate("fit")` region, "scan" the others.  "by_span" puts each
+    kernel under the innermost span (user annotation) inside the region
+    that holds its launch, and each idle stretch of the span under the
+    innermost one that holds its middle; a path names the spans that hold
+    it from the region down ("steps/step/cones"), the region's own path
+    takes what no inner span holds.  Raises ValueError when the trace has
+    no such region."""
     evs = load_trace_events(trace_path)
     tops = _regions(evs, top_level)
     if not tops:
@@ -200,9 +225,25 @@ def decompose_trace(trace_path: str, buckets=DEFAULT_BUCKETS,
     span_s = (end - t0) / 1e6
     busy = _union_s([(k["ts"], k["ts"] + k.get("dur", 0)) for k in inside])
     order = lambda d: dict(sorted(d.items(), key=lambda kv: -kv[1]))
+    tree = _span_tree(evs, span)
+    by_span = {}
+
+    def row(path):
+        return by_span.setdefault(path, {"device_s": 0.0, "idle_s": 0.0,
+                                         "launches": 0})
+
+    for k, path in zip(inside, _innermost(tree, [k["launch_ts"]
+                                                 for k in inside])):
+        row(path)["device_s"] += k.get("dur", 0) / 1e6
+        row(path)["launches"] += 1
+    idle = _gaps([(k["ts"], k["ts"] + k.get("dur", 0)) for k in inside],
+                 t0, end)
+    for (a, b), path in zip(idle, _innermost(tree, [(a + b) / 2
+                                                    for a, b in idle])):
+        row(path)["idle_s"] += (b - a) / 1e6
     return {"span_s": span_s, "leaf_busy_s": busy,
             "dispatch_gap_s": span_s - busy, "by_bucket": order(by_bucket),
-            "fit": order(fit), "scan": order(scan)}
+            "fit": order(fit), "scan": order(scan), "by_span": by_span}
 
 
 def kernel_summary(trace_path: str) -> dict:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..observability import tracing
 from . import _build
 
 MAX_N = 1024
@@ -147,11 +148,8 @@ def chol_linv(K: torch.Tensor, nb: int = LINV_NB):
     _check_blocked_nb(nb, "chol_linv")
     L, Linv = torch.empty_like(K), torch.empty_like(K)
     _launch_per_matrix("chol_linv", K, nb, L, Linv)
-    chol_linv.launches += 1
+    tracing.count("launches.chol_linv")
     return L, Linv
-
-
-chol_linv.launches = 0
 
 
 def kinv_logdet(K: torch.Tensor, nb: int = KINV_NB):
@@ -166,11 +164,8 @@ def kinv_logdet(K: torch.Tensor, nb: int = KINV_NB):
     Kinv = torch.empty_like(K)
     logdet = torch.empty(K.shape[:1], dtype=K.dtype, device=K.device)
     _launch_per_matrix("kinv_logdet", K, nb, Kinv, logdet)
-    kinv_logdet.launches += 1
+    tracing.count("launches.kinv_logdet")
     return Kinv, logdet
-
-
-kinv_logdet.launches = 0
 
 
 # ---- blocked factor with diagonal-block inverses (csrc/chol_blocked.cu) ----
@@ -213,11 +208,8 @@ def chol_dinv(K: torch.Tensor, nb: int = NB_BLK):
         None if scratch is None else scratch.data_ptr(), B, n, N, nb,
         torch.cuda.current_stream(K.device).cuda_stream)
     _build.check(rc, "chol_dinv_launch")
-    chol_dinv.launches += 1
+    tracing.count("launches.chol_dinv")
     return L, Dinv
-
-
-chol_dinv.launches = 0
 
 
 def assemble_linv(L: torch.Tensor, Dinv: torch.Tensor, nb: int,
@@ -399,11 +391,8 @@ def cholsolve_logdet(K: torch.Tensor, RHS: torch.Tensor, nb: int = NB_BLK):
         None if x is None else x.data_ptr(), B, n, N, nb, r,
         torch.cuda.current_stream(K.device).cuda_stream)
     _build.check(rc, "cholsolve_logdet_launch")
-    cholsolve_logdet.launches += 1
+    tracing.count("launches.cholsolve_logdet")
     return sol, L, Dinv, logdet
-
-
-cholsolve_logdet.launches = 0
 
 
 def solve_groups(B: int, r: int, sms: int, width: int):
@@ -481,8 +470,5 @@ def solve_with_factor(L: torch.Tensor, Dinv: torch.Tensor,
                          f"{Dinv.dtype} {tuple(Dinv.shape)} on {Dinv.device}")
     _check_rhs(RHS, B, N, L, "solve_with_factor")
     sol = _launch_solve(L, Dinv, RHS, nb)
-    solve_with_factor.launches += 1
+    tracing.count("launches.solve_with_factor")
     return sol
-
-
-solve_with_factor.launches = 0

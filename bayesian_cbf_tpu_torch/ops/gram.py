@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..observability import tracing
 from . import _build
 
 MAX_DIM = 16
@@ -124,8 +125,5 @@ def fused_gram_kb(Xs, UHB_half, mask, outputscale, jitter: float):
         raise ValueError(f"fused_gram_kb: need 1 <= n, 1+m <= {MAX_DIM}, "
                          f"got n={n}, 1+m={mh}")
     out = _launch(Xs, UHB_half, mask, outputscale, jitter)
-    fused_gram_kb.launches += 1
+    tracing.count("launches.fused_gram_kb")
     return out
-
-
-fused_gram_kb.launches = 0

@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from ..observability import tracing
 from . import _build
 
 _EPS = 1e-14
@@ -321,8 +322,5 @@ def ipm(c, Gp, hp, sx, sS, sZ, iters: int, tol: float):
                         B, nx, C, d, int(iters), float(tol),
                         torch.cuda.current_stream(c.device).cuda_stream)
     _build.check(rc, "ipm_launch")
-    ipm.launches += 1
+    tracing.count("launches.ipm")
     return x, S, Z
-
-
-ipm.launches = 0

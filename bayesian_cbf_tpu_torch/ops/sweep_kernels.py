@@ -38,6 +38,7 @@ import functools
 
 import torch
 
+from ..observability import tracing
 from . import _build
 from .chol_kernels import check_batch, padded_order
 
@@ -234,8 +235,5 @@ def batched_kinv_logdet(K: torch.Tensor, base: int = 0):
         out = _launch_regs(K, instance)
     else:
         out = _launch_events(K, base)
-    batched_kinv_logdet.launches += 1
+    tracing.count("launches.batched_kinv_logdet")
     return out
-
-
-batched_kinv_logdet.launches = 0

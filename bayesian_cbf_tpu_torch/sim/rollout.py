@@ -22,6 +22,7 @@ from ..control.bayes_controller import (BayesCLFControllerConfig,
                                         warm_init)
 from ..models.dynamics import (KernelChannels, LearnedDynState,
                                LearnedShiftInvariantDynamics, where_tree)
+from ..observability import tracing
 
 
 class RolloutOutputs(NamedTuple):
@@ -62,6 +63,7 @@ class UnicycleSim(NamedTuple):
         return bayes_clf_control(cfg_full, self.clf, self.cbfs, self.planner,
                                  mom, x0s, 0, warm=w0)[2]
 
+    @tracing.spanned("step")
     def _step_impl(self, carry, t: int, learn_fn, j, generator):
         x, dyn = carry[0], carry[1]
         warm = carry[2] if len(carry) == 3 else None
@@ -155,7 +157,7 @@ def _rollout(sim: UnicycleSim, x0s, generator, state0, draws):
             # warm refit; episodes with an empty reservoir keep their state
             fit = lrn.fit_now_first if fit_event == 0 else lrn.fit_now_warm
             states = carry[1]
-            with torch.profiler.record_function("fit"):
+            with tracing.span("fit"):
                 states = where_tree(states.count_res > 0, fit(states),
                                     states)
             carry = (carry[0], states) + carry[2:]

@@ -15,6 +15,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..observability import tracing
 from ..ops.ipm_kernel import gt_mul, g_mul, ipm, score_padded
 
 
@@ -55,6 +56,7 @@ def _interior_shift(S):
     return torch.cat([S[..., :1] + shift[..., None], S[..., 1:]], -1)
 
 
+@tracing.spanned("socp")
 def solve_socp(c, G, h, dims: Tuple[int, ...], iters: int = 30,
                tol: float = 1e-10, warm=None) -> SOCPSolution:
     """Solve a batch of SOCPs with shared cone sizes `dims`.

@@ -14,6 +14,8 @@ from functools import lru_cache
 
 import torch
 
+from ..observability import tracing
+
 
 def kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Kronecker product of the trailing two axes: (p, q) x (r, s) ->
@@ -41,11 +43,10 @@ def psd_cholesky(K: torch.Tensor, init_jitter: float = 1e-6,
     batched routine that accepted it (on a card the batched and the
     single-matrix Cholesky may disagree on a matrix at the edge of
     definiteness); a matrix whose chosen rung fails there counts as
-    factored by no rung.  Each call adds its matrices per accepted rung to
-    `psd_cholesky.rungs`, a (num_tries + 2,) integer tensor on K's device
-    whose last entry counts the matrices no rung factored (None until the
-    first call), without a host sync: set it to None before a run and read
-    it after."""
+    factored by no rung.  While a recording is open
+    (`observability.tracing`), each call counts its matrices per accepted
+    rung in `psd_cholesky.rung0` .. `psd_cholesky.rung<num_tries>`, and
+    those no rung factored in `psd_cholesky.rung<num_tries + 1>`."""
     K, diag_scale = _sym_scale(K)
     n = K.shape[-1]
     eye = torch.eye(n, dtype=K.dtype, device=K.device)
@@ -66,19 +67,16 @@ def psd_cholesky(K: torch.Tensor, init_jitter: float = 1e-6,
         found = found & ((info == 0) & torch.isfinite(
             Ls.detach()).all(-1).all(-1) | ~chosen).all(0)
     idx = first[None, ..., None, None].expand((1,) + Ks.shape[1:])
-    rung = torch.where(found, first, num_tries + 1)
-    counts = (rung.reshape(-1, 1) == torch.arange(
-        num_tries + 2, device=K.device)).sum(0)
-    seen = psd_cholesky.rungs
-    psd_cholesky.rungs = counts if seen is None \
-        else seen + counts.to(seen.device)
+    if tracing.enabled():
+        rung = torch.where(found, first, num_tries + 1)
+        counts = (rung.reshape(-1, 1) == torch.arange(
+            num_tries + 2, device=K.device)).sum(0)
+        for i in range(num_tries + 2):
+            tracing.count(f"psd_cholesky.rung{i}", counts[i])
     found = found[..., None, None]
     L = torch.gather(Ls, 0, idx)[0]
     return (torch.where(found, torch.gather(Ks, 0, idx)[0], K),
             torch.where(found, L, torch.zeros_like(L)))
-
-
-psd_cholesky.rungs = None
 
 
 def psd_clamp_eigh(K: torch.Tensor, eps: float = 0.0) -> torch.Tensor:

@@ -109,17 +109,29 @@ def pendulum_x0s(dev, B=256, dtype=torch.float32):
     return torch.tensor(x0, dtype=dtype, device=dev)
 
 
+# the kernels' short names -> their wrappers, whose launches a recording
+# counts as `launches.<wrapper>` (`observability/tracing.py`)
+KERNELS = dict(ipm="ipm", kinv_logdet="kinv_logdet", chol_linv="chol_linv",
+               chol_dinv="chol_dinv", sweep="batched_kinv_logdet",
+               gram="fused_gram_kb", cholsolve_logdet="cholsolve_logdet",
+               solve_with_factor="solve_with_factor")
+
+
 def counters():
-    """The kernels' wrappers, each with its `launches` count."""
-    from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
-    from bayesian_cbf_tpu_torch.ops import gram as gm
-    from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
-    from bayesian_cbf_tpu_torch.ops import sweep_kernels as sk
-    return dict(ipm=ik.ipm, kinv_logdet=ck.kinv_logdet,
-                chol_linv=ck.chol_linv, chol_dinv=ck.chol_dinv,
-                sweep=sk.batched_kinv_logdet, gram=gm.fused_gram_kb,
-                cholsolve_logdet=ck.cholsolve_logdet,
-                solve_with_factor=ck.solve_with_factor)
+    """The kernels' short names, the keys of a record's `launches`."""
+    return tuple(KERNELS)
+
+
+def launch_counts(report):
+    """{short name: launches} of a `tracing.report()`."""
+    c = report["counters"]
+    return {k: c.get(f"launches.{w}", 0) for k, w in KERNELS.items()}
+
+
+def counter_list(report, prefix, n):
+    """The counters `<prefix>0` .. `<prefix><n - 1>` of a
+    `tracing.report()` (0 where one was never counted)."""
+    return [report["counters"].get(f"{prefix}{i}", 0) for i in range(n)]
 
 
 def unicycle_outcomes(sim, out):
@@ -192,9 +204,10 @@ def run_protocol(workload, device, batch=256, steps=None, reps=3,
     the timed walls.  Raises RuntimeError when two rollouts' outcomes,
     launch counts or accepted rungs differ.  Returns the JSON record;
     `rollouts` holds every rollout's wall, launches, accepted rungs
-    (`MVGP.refresh_cache.rungs`: episodes per rung of the cache refreshes'
-    jitter ladder, first / + 1e-5 scale / + 1e-2 scale) and outcomes, the
-    last output is under "out" (dropped by `json_line`)."""
+    (the `refresh.rung<i>` counters: episodes per rung of the cache
+    refreshes' jitter ladder, first / + 1e-5 scale / + 1e-2 scale) and
+    outcomes, the last output is under "out" (dropped by `json_line`).
+    Every rollout runs inside a `tracing.recording()`, which counts them."""
     if workload not in WORKLOADS:
         raise ValueError(f"unknown workload {workload!r}; one of {WORKLOADS}")
     dev = torch.device(device)
@@ -215,24 +228,21 @@ def run_protocol(workload, device, batch=256, steps=None, reps=3,
         x0s, seed = pendulum_x0s(dev, batch, dtype), 5
         lrn, run, read = sim.learned, run_pendulum_online_batch, \
             pendulum_outcomes
-    from bayesian_cbf_tpu_torch.models.mvgp import MVGP
+    from bayesian_cbf_tpu_torch.observability import tracing
     T = sim.numSteps
-    fns = counters()
     rollouts = []
     for _ in range(1 + reps):
         gen = torch.Generator(device=dev).manual_seed(seed)
-        for fn in fns.values():
-            fn.launches = 0
-        MVGP.refresh_cache.rungs = None
         _sync(dev)
-        t0 = time.perf_counter()
-        out = run(sim, x0s, generator=gen)
-        _sync(dev)
-        wall = time.perf_counter() - t0
-        rungs = MVGP.refresh_cache.rungs
+        with tracing.recording():
+            t0 = time.perf_counter()
+            out = run(sim, x0s, generator=gen)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+        rep = tracing.report()
         rollouts.append(dict(
-            wall_s=wall, launches={k: fn.launches for k, fn in fns.items()},
-            refresh_rungs=[0, 0, 0] if rungs is None else rungs.tolist(),
+            wall_s=wall, launches=launch_counts(rep),
+            refresh_rungs=counter_list(rep, "refresh.rung", 3),
             outcomes=read(sim, out)))
     first, timed = rollouts[0], rollouts[1:]
     same = ("outcomes", "launches", "refresh_rungs")

@@ -167,6 +167,7 @@ import numpy as np
 import torch
 
 import bench_torch as bt
+from bayesian_cbf_tpu_torch.observability import tracing
 
 
 # one H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
@@ -1700,25 +1701,13 @@ def phase_outcomes(dev, card):
     rungs of its cache refreshes; then the verdicts they decide, each
     required true.  Returns the launch counts per run and each run's
     (outputs, wall s)."""
-    from bayesian_cbf_tpu_torch.models.mvgp import MVGP
     co = _check_outcomes_torch()
-    fns = bt.counters()
     runs = {name: (lambda name=name: co.unicycle_run(name, dev))
             for name in co.UNICYCLE_RUNS}
     runs["pendulum_online"] = lambda: co.pendulum_run(dev)
     results, launches, outs = {}, {}, {}
     for name, run in runs.items():
-        for fn in fns.values():
-            fn.launches = 0
-        MVGP.refresh_cache.rungs = None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sim, out = run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {k: fn.launches for k, fn in fns.items()}
-        rungs = MVGP.refresh_cache.rungs
-        rungs = [0, 0, 0] if rungs is None else rungs.tolist()
+        (sim, out), wall, counts, rungs = _counted(run)
         lrn = getattr(sim, "learned_dynamics", None) or sim.learned
         T = sim.numSteps
         results[name] = (co.unicycle_result(name, sim, out)
@@ -1764,22 +1753,18 @@ MOVE_DEMOS = {
 
 
 def _counted(run):
-    """run() with every kernel's launch count and the refresh rungs set to
-    0 just before it and read just after: (its result, wall s, launch
-    counts, accepted rungs)."""
-    from bayesian_cbf_tpu_torch.models.mvgp import MVGP
-    fns = bt.counters()
-    for fn in fns.values():
-        fn.launches = 0
-    MVGP.refresh_cache.rungs = None
+    """run() inside a `tracing.recording()`, which counts every kernel's
+    launches and the refresh rungs: (its result, wall s, launch counts,
+    accepted rungs); `tracing.report()` keeps the rest of its counters."""
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rungs = MVGP.refresh_cache.rungs
-    return (out, wall, {k: fn.launches for k, fn in fns.items()},
-            [0, 0, 0] if rungs is None else rungs.tolist())
+    with tracing.recording():
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rep = tracing.report()
+    return (out, wall, bt.launch_counts(rep),
+            bt.counter_list(rep, "refresh.rung", 3))
 
 
 def phase_deterministic(dev, card):
@@ -2057,19 +2042,18 @@ def _car_learn_same_inputs(dev, card):
     def dist(a, b):
         return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
-    fns = bt.counters()
     kernel_fns = cholinv._kinv_logdet_kernel, cholinv.chol_linv
     out = {}
     for iters in (1, 40):
         res = {"kernels": learn(dev, torch.float32, iters)}
-        before = {k: fn.launches for k, fn in fns.items()}
         cholinv._kinv_logdet_kernel = ck.kinv_logdet_plain
         cholinv.chol_linv = ck.chol_linv_plain
         try:
-            res["plain"] = learn(dev, torch.float32, iters)
+            res["plain"], _, counts, _ = _counted(
+                lambda: learn(dev, torch.float32, iters))
         finally:
             cholinv._kinv_logdet_kernel, cholinv.chol_linv = kernel_fns
-        _require(before == {k: fn.launches for k, fn in fns.items()},
+        _require(not any(counts.values()),
                  "car learn: the plain run launched a kernel")
         res["cpu f32"] = learn("cpu", torch.float32, iters)
         res["cpu f64"] = learn("cpu", torch.float64, iters)
@@ -2488,7 +2472,6 @@ def _learn_dynamics(dev, card):
     from bayesian_cbf_tpu_torch.experiments import pendulum as tp
     from bayesian_cbf_tpu_torch.models.cogp import make_cogp
     from bayesian_cbf_tpu_torch.models.mvgp import make_mvgp
-    from bayesian_cbf_tpu_torch.utils import linalg as la
     f64 = torch.float64
     cpu_gen = lambda: torch.Generator().manual_seed(0)
     data = tp.sample_pendulum_data(numSteps=2048, generator=cpu_gen(),
@@ -2496,12 +2479,11 @@ def _learn_dynamics(dev, card):
     init = {"matrix": make_mvgp(2, 1).init_params(1, cpu_gen(), "cpu", f64),
             "vector": make_cogp(2, 1).init_params(cpu_gen(), "cpu", f64)}
     fitted = {}
-    la.psd_cholesky.rungs = None
     got, wall, counts, rungs = _counted(lambda: tp.learn_dynamics_matrix_vector(
         data=data, params0={k: _cast(p, dev, torch.float32)
                             for k, p in init.items()},
         params_out=fitted, device=dev, dtype=torch.float32))
-    cogp_rungs = la.psd_cholesky.rungs.tolist()
+    cogp_rungs = bt.counter_list(tracing.report(), "psd_cholesky.rung", 10)
     t0 = time.perf_counter()
     ref = tp.learn_dynamics_matrix_vector(data=data, params0=init,
                                           device="cpu", dtype=f64)
@@ -2548,7 +2530,6 @@ def _speed_tests(dev, card):
     launch counts of each."""
     from bayesian_cbf_tpu_torch.experiments import pendulum as tp
     from bayesian_cbf_tpu_torch.experiments import unicycle as tu
-    from bayesian_cbf_tpu_torch.utils import linalg as la
     runs = {}
     for label, run in (
             ("speed test", lambda out: tp.speed_test_matrix_vector(
@@ -2556,9 +2537,9 @@ def _speed_tests(dev, card):
             ("unicycle speed test", lambda out: tu.unicycle_speed_test(
                 device=dev))):
         fitted = {}
-        la.psd_cholesky.rungs = None
         res, wall, counts, rungs = _counted(lambda: run(fitted))
-        cogp_rungs = la.psd_cholesky.rungs.tolist()
+        cogp_rungs = bt.counter_list(tracing.report(), "psd_cholesky.rung",
+                                     10)
         for name, per_k in res.items():
             for k, r in per_k.items():
                 print(f"[{label}] {name} k={k}: {r['elapsed'] * 1e3:.3f} ms "

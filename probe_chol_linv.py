@@ -558,9 +558,9 @@ def refresh_grams(into):
     from bayesian_cbf_tpu_torch.models.mvgp import MVGP
     inner = MVGP.factor_ladder
 
-    def recording(self, K):
+    def recording(self, K, **kw):
         into.append(K)
-        return inner(self, K)
+        return inner(self, K, **kw)
 
     MVGP.factor_ladder = recording
     try:

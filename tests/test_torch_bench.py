@@ -75,8 +75,9 @@ def test_no_kernel_is_launched_on_the_cpu(record):
 
 
 def test_every_rollout_counts_a_rung_per_episode_and_refresh(record):
-    """`refresh_rungs` is `MVGP.refresh_cache.rungs` of one rollout: every
-    cache refresh adds each of the 2 episodes to the rung it accepted, and
+    """`refresh_rungs` is the `refresh.rung<i>` counters of one rollout's
+    recording: every cache refresh adds each of the 2 episodes to the rung
+    it accepted, and
     these well-conditioned f64 Grams all take the first."""
     steps, every = (TINY[record["workload"]][k]
                     for k in ("steps", "train_every_n_steps"))

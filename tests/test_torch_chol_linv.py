@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from bayesian_cbf_tpu.ops.pallas_chol import batched_chol_with_inv
+from bayesian_cbf_tpu_torch.observability import tracing
 from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
 
 
@@ -123,10 +124,10 @@ def test_chol_linv_cpu_dispatch_ignores_block_size(nb):
     """On the CPU the wrapper takes `chol_linv_plain`, whatever nb, and
     counts no launch."""
     K = torch.tensor(_grams(9, 1)).double()
-    before = ck.chol_linv.launches
-    for g, w in zip(ck.chol_linv(K, nb), ck.chol_linv_plain(K)):
-        assert torch.equal(g, w)
-    assert ck.chol_linv.launches == before
+    with tracing.recording():
+        for g, w in zip(ck.chol_linv(K, nb), ck.chol_linv_plain(K)):
+            assert torch.equal(g, w)
+    assert "launches.chol_linv" not in tracing.report()["counters"]
 
 
 def test_chol_linv_raises_off_cpu_and_cuda():

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from bayesian_cbf_tpu.ops.pallas_chol import batched_kinv_logdet_chol
+from bayesian_cbf_tpu_torch.observability import tracing
 from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
 
 
@@ -96,8 +97,8 @@ def test_in_place_row_assembly_matches_assemble_linv(n, nb):
 def test_kinv_logdet_cpu_dispatch_ignores_block_size():
     """On the CPU the wrapper takes `kinv_logdet_plain`, whatever nb."""
     K = torch.tensor(_spd(9, 0))[None]
-    before = ck.kinv_logdet.launches
-    for nb in (8, 32):
-        for g, w in zip(ck.kinv_logdet(K, nb), ck.kinv_logdet_plain(K)):
-            assert torch.equal(g, w)
-    assert ck.kinv_logdet.launches == before
+    with tracing.recording():
+        for nb in (8, 32):
+            for g, w in zip(ck.kinv_logdet(K, nb), ck.kinv_logdet_plain(K)):
+                assert torch.equal(g, w)
+    assert "launches.kinv_logdet" not in tracing.report()["counters"]

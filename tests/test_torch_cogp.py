@@ -28,6 +28,7 @@ from bayesian_cbf_tpu_torch.experiments import pendulum as tp
 from bayesian_cbf_tpu_torch.experiments import unicycle as tu
 from bayesian_cbf_tpu_torch.models import cogp as tc
 from bayesian_cbf_tpu_torch.models import mvgp as tm
+from bayesian_cbf_tpu_torch.observability import tracing
 from bayesian_cbf_tpu_torch.utils import linalg as tla
 
 F64 = torch.float64
@@ -104,8 +105,11 @@ def test_fit_cache_and_posterior_match_jax(name, jmake, tmake):
     data, params = _case(gp.rank, seed=1)
     jpar, jdat = _jax_pair(data, params)
     tpar, tdat = _torch_pair(data, params)
-    tla.psd_cholesky.rungs = None
-    fitted = gp.fit(tpar, tdat, training_iter=6)
+    with tracing.recording():
+        fitted = gp.fit(tpar, tdat, training_iter=6)
+        cache = gp.refresh_cache(fitted, tdat)
+    rungs = [tracing.report()["counters"].get(f"psd_cholesky.rung{i}", 0)
+             for i in range(10)]
     jfit = jgp.fit(jpar, jdat, training_iter=6)
     assert fitted.W_S.shape == ((1 + M) * N, gp.rank)
     for f in tc.CoGPParams._fields:
@@ -113,7 +117,6 @@ def test_fit_cache_and_posterior_match_jax(name, jmake, tmake):
     for f in ("raw_lengthscale", "raw_outputscale", "raw_linscale",
               "raw_vS"):
         assert (getattr(fitted, f) - getattr(tpar, f)).abs().min() > 1e-3, f
-    cache = gp.refresh_cache(fitted, tdat)
     jcache = jgp.refresh_cache(jfit, jdat)
     _close(cache.L, jcache.L, 1e-9)
     _close(cache.alpha, jcache.alpha, 1e-8)
@@ -124,7 +127,7 @@ def test_fit_cache_and_posterior_match_jax(name, jmake, tmake):
     _close(var, jvar, 1e-8)
     assert torch.equal(var, var.T)
     # 6 steps + the refresh, one matrix each, all on rung 0
-    assert tla.psd_cholesky.rungs.tolist() == [7] + [0] * 9
+    assert rungs == [7] + [0] * 9
 
 
 def test_init_params_shapes_and_failed_ladder_counted():
@@ -136,12 +139,15 @@ def test_init_params_shapes_and_failed_ladder_counted():
     assert tc.make_cogp_diag(3, 2).init_params(
         gen, "cpu", torch.float32).W_S.shape == (9, 0)
     np.testing.assert_allclose(float(p.linscale), 0.1)
-    tla.psd_cholesky.rungs = None
     mats = torch.tensor([[[1.0, 0.0], [0.0, 1.0]],
                          [[0.0, 100.0], [100.0, 0.0]]], dtype=F64)
-    _, L = tla.psd_cholesky(mats)
+    with tracing.recording():
+        _, L = tla.psd_cholesky(mats)
     assert torch.equal(L[1], torch.zeros(2, 2, dtype=F64))
-    assert tla.psd_cholesky.rungs.tolist() == [1] + [0] * 8 + [1]
+    assert tracing.report()["counters"] == {"psd_cholesky.rung0": 1,
+                                            "psd_cholesky.rung9": 1,
+                                            **{f"psd_cholesky.rung{i}": 0
+                                               for i in range(1, 9)}}
 
 
 def test_psd_cholesky_gradient_flows_through_the_accepted_rung():
@@ -154,9 +160,10 @@ def test_psd_cholesky_gradient_flows_through_the_accepted_rung():
     K = torch.tensor((v * np.array([-1e-4, 0.5, 1.0, 2.0, 3.0])) @ v.T,
                      requires_grad=True)
     W = torch.tensor(rng.normal(size=(5, 5)))
-    tla.psd_cholesky.rungs = None
-    Kj, L = tla.psd_cholesky(K)
-    rung = int(torch.argmax(tla.psd_cholesky.rungs))
+    with tracing.recording():
+        Kj, L = tla.psd_cholesky(K)
+    counts = tracing.report()["counters"]
+    rung = max(range(10), key=lambda i: counts[f"psd_cholesky.rung{i}"])
     assert 0 < rung < 9
     (g,) = torch.autograd.grad((L * W).sum(), K)
     Ks = 0.5 * (K + K.T)

@@ -10,10 +10,18 @@ import numpy as np
 import pytest
 import torch
 
+from bayesian_cbf_tpu_torch.observability import tracing
 from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
 from bayesian_cbf_tpu_torch.ops import gram as gm
 from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
 from bayesian_cbf_tpu_torch.ops import sweep_kernels as sk
+
+
+def _launches():
+    """{kernel wrapper: launches} that the last recording counted."""
+    return {k.split(".", 1)[1]: v
+            for k, v in tracing.report()["counters"].items()
+            if k.startswith("launches.")}
 
 
 def _trajectory_grams(B, k, seed, step=0.02, nug=2.5e-4):
@@ -214,9 +222,9 @@ def test_chol_kernels_agree_with_plain_elementwise(cuda):
 @pytest.mark.cuda
 def test_kernels_count_launches_and_reject_bad_input(cuda):
     K = torch.eye(4, device=cuda).expand(2, 4, 4).contiguous()
-    before = ck.chol_linv.launches
-    ck.chol_linv(K)
-    assert ck.chol_linv.launches == before + 1
+    with tracing.recording():
+        ck.chol_linv(K)
+    assert _launches() == {"chol_linv": 1}
     with pytest.raises(ValueError):
         ck.chol_linv(K.double())
     with pytest.raises(ValueError):
@@ -227,9 +235,9 @@ def test_kernels_count_launches_and_reject_bad_input(cuda):
         ck.kinv_logdet(K, nb=6)
     with pytest.raises(ValueError):
         ck.chol_linv(K, nb=6)
-    before = ck.kinv_logdet.launches
-    ck.kinv_logdet(K)
-    assert ck.kinv_logdet.launches == before + 1
+    with tracing.recording():
+        ck.kinv_logdet(K)
+    assert _launches() == {"kinv_logdet": 1}
 
 
 @pytest.mark.cuda
@@ -352,11 +360,11 @@ def test_sweep_regs_same_bits_twice(cuda):
     same input give the same bits, one count each."""
     K = torch.tensor(_trajectory_grams(300, 200, 9), dtype=torch.float32,
                      device=cuda)
-    before = sk.batched_kinv_logdet.launches
-    first = sk.batched_kinv_logdet(K, sk.full_base(200))
-    again = sk.batched_kinv_logdet(K, sk.full_base(200))
+    with tracing.recording():
+        first = sk.batched_kinv_logdet(K, sk.full_base(200))
+        again = sk.batched_kinv_logdet(K, sk.full_base(200))
     torch.cuda.synchronize()
-    assert sk.batched_kinv_logdet.launches == before + 2
+    assert _launches() == {"batched_kinv_logdet": 2}
     assert _same_bits(first, again)
 
 
@@ -529,14 +537,13 @@ def test_gram_kernel_exact_on_near_duplicate_points(cuda):
 @pytest.mark.cuda
 def test_new_kernels_count_launches_and_reject_bad_input(cuda):
     K = torch.eye(8, device=cuda).expand(2, 8, 8).contiguous()
-    before = (sk.batched_kinv_logdet.launches, ck.chol_dinv.launches,
-              gm.fused_gram_kb.launches)
-    sk.batched_kinv_logdet(K)
-    ck.chol_dinv(K)
-    gm.fused_gram_kb(K[:, :, :3].contiguous(), K[:, :, :3].contiguous(),
-                     K[:, 0].contiguous(), K[:, 0, 0].contiguous(), 0.0)
-    assert (sk.batched_kinv_logdet.launches, ck.chol_dinv.launches,
-            gm.fused_gram_kb.launches) == tuple(b + 1 for b in before)
+    with tracing.recording():
+        sk.batched_kinv_logdet(K)
+        ck.chol_dinv(K)
+        gm.fused_gram_kb(K[:, :, :3].contiguous(), K[:, :, :3].contiguous(),
+                         K[:, 0].contiguous(), K[:, 0, 0].contiguous(), 0.0)
+    assert _launches() == {"batched_kinv_logdet": 1, "chol_dinv": 1,
+                           "fused_gram_kb": 1}
     with pytest.raises(ValueError):
         sk.batched_kinv_logdet(K.double())
     with pytest.raises(ValueError):
@@ -626,11 +633,10 @@ def test_cholsolve_on_trajectory_grams(cuda):
 def test_cholsolve_counts_launches_and_rejects_bad_input(cuda):
     K = torch.eye(8, device=cuda).expand(2, 8, 8).contiguous()
     R = torch.ones((2, 8, 3), device=cuda)
-    before = (ck.cholsolve_logdet.launches, ck.solve_with_factor.launches)
-    _, L, Dinv, _ = ck.cholsolve_logdet(K, R)
-    ck.solve_with_factor(L, Dinv, R)
-    assert (ck.cholsolve_logdet.launches,
-            ck.solve_with_factor.launches) == (before[0] + 1, before[1] + 1)
+    with tracing.recording():
+        _, L, Dinv, _ = ck.cholsolve_logdet(K, R)
+        ck.solve_with_factor(L, Dinv, R)
+    assert _launches() == {"cholsolve_logdet": 1, "solve_with_factor": 1}
     for bad in (R.double(), torch.ones((2, 8, 65), device=cuda),
                 R.transpose(1, 2).contiguous().transpose(1, 2),
                 torch.ones((2, 7, 3), device=cuda)):
@@ -815,10 +821,10 @@ def test_ipm_raises_on_an_uninstantiated_shape(cuda):
     from bayesian_cbf_tpu_torch.ops import _build
     args = [torch.tensor(a, dtype=torch.float32, device=cuda)
             for a in _mixed_cones(4, 0, dims=(4,) + (1,) * 8)]
-    before = ik.ipm.launches
-    with pytest.raises(ValueError, match="instantiated"):
-        ik.ipm(*args, 5, 1e-10)
-    assert ik.ipm.launches == before
+    with tracing.recording():
+        with pytest.raises(ValueError, match="instantiated"):
+            ik.ipm(*args, 5, 1e-10)
+    assert _launches() == {}
     lib = _build.load("ipm")
     shapes = ik.instantiated_shapes()
     assert {(4, 4, 4), (4, 3, 3), (3, 5, 3), (4, 6, 4), (4, 2, 4),
@@ -847,10 +853,10 @@ def test_qp_and_option_controllers_on_the_card(cuda):
     rng = np.random.default_rng(3)
     qp = (rng.normal(size=(8, 3, 2)), rng.normal(size=(8, 3)),
           np.broadcast_to(np.eye(2), (8, 2, 2)).copy(), np.full((8, 2), 0.5))
-    before = ik.ipm.launches
-    u, sol = solve_qp_active_set(*(torch.tensor(a, dtype=torch.float32,
-                                                device=cuda) for a in qp))
-    assert ik.ipm.launches == before + 1
+    with tracing.recording():
+        u, sol = solve_qp_active_set(*(torch.tensor(a, dtype=torch.float32,
+                                                    device=cuda) for a in qp))
+    assert _launches() == {"ipm": 1}
     assert tuple(sol.z.shape) == (8, 3, 4)
     u64, _ = solve_qp_active_set(*(torch.tensor(a) for a in qp))
     assert float((u.double().cpu() - u64).abs().max()) < 1e-2
@@ -975,21 +981,49 @@ def test_serving_ticks_on_the_card_follow_the_cpu(cuda, continuous):
         if dev == "cuda":
             ctl.restore(_map(lambda a: a.to(cuda), runs["cpu"][2]))
         start = ctl.state()
-        for fn in (ik.ipm, ck.kinv_logdet, ck.chol_linv):
-            fn.launches = 0
         refreshes = 0
         U = []
-        for j in draws:
-            before = int(ctl.state()[1].count_res)
-            U.append(ctl.tick(draw=j)[0])
-            after = int(ctl.state()[1].count_res)
-            refreshes += int(continuous and after > before
-                             and before >= kw["max_train"])
-        counts = (ik.ipm.launches, ck.kinv_logdet.launches,
-                  ck.chol_linv.launches)
+        with tracing.recording():
+            for j in draws:
+                before = int(ctl.state()[1].count_res)
+                U.append(ctl.tick(draw=j)[0])
+                after = int(ctl.state()[1].count_res)
+                refreshes += int(continuous and after > before
+                                 and before >= kw["max_train"])
+        launched = _launches()
+        counts = tuple(launched.get(k, 0)
+                       for k in ("ipm", "kinv_logdet", "chol_linv"))
         runs[dev] = (np.array(U), int(ctl.state()[1].count_res), start,
                      counts, refreshes)
     (Uc, nc, _, cc, rc), (Ug, ng, _, cg, rg) = runs["cpu"], runs["cuda"]
     assert np.all(np.isfinite(Ug)) and ng == nc
     assert np.abs(Ug - Uc).max() / (1.0 + np.abs(Uc).max()) < 5e-2
     assert cg == (len(draws), kw["training_iter"], 3 * (1 + rg))
+
+
+@pytest.mark.cuda
+def test_spans_read_the_streams_time(cuda):
+    """On the card every span of a 3-step pendulum batch carries the
+    stream's time between its two events: non-null, non-negative, the
+    phases of a step within the step's; the launch counters count the
+    batch's kernels."""
+    from bayesian_cbf_tpu_torch.experiments import pendulum as tp
+    sim = tp.make_pendulum_online_sim(numSteps=3, max_train=8,
+                                      training_iter=2, train_every_n_steps=1,
+                                      device=cuda)
+    x0s = torch.tensor([[tp.THETA0, 0.0]] * 4)
+    tp.run_pendulum_online_batch(sim, x0s, torch.Generator(
+        device=cuda).manual_seed(0))
+    with tracing.recording():
+        tp.run_pendulum_online_batch(sim, x0s, torch.Generator(
+            device=cuda).manual_seed(0))
+    spans = tracing.report()["spans"]
+    assert set(spans) == {"step", "step/moments", "step/lqr", "step/cones",
+                          "step/socp", "fit"}
+    for row in spans.values():
+        assert row["device_ns"] is not None and row["device_ns"] >= 0
+        assert row["self_device_ns"] is not None
+    phases = sum(spans[p]["device_ns"] for p in spans
+                 if p.startswith("step/"))
+    assert phases <= spans["step"]["device_ns"] + 1000 * 3
+    assert _launches()["ipm"] == 3

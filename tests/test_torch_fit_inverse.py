@@ -22,6 +22,7 @@ from bayesian_cbf_tpu.ops import pallas_chol as jpc
 from bayesian_cbf_tpu.ops import pallas_sweep as jps
 from bayesian_cbf_tpu_torch import interop
 from bayesian_cbf_tpu_torch.models.mvgp import MVGPData, make_mvgp_rank1
+from bayesian_cbf_tpu_torch.observability import tracing
 from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
 from bayesian_cbf_tpu_torch.ops import cholinv
 from bayesian_cbf_tpu_torch.ops import sweep_kernels as sk
@@ -261,12 +262,15 @@ def test_f32_fit_moves_hyperparameters(fit_inverse, linv_assembly):
 
 def test_cpu_tensors_take_the_plain_versions():
     K = torch.tensor(_spd(2, 20, 3))
-    before = (sk.batched_kinv_logdet.launches, ck.chol_dinv.launches)
-    for got, want in ((sk.batched_kinv_logdet(K), sk.batched_kinv_logdet_plain(K)),
-                      (ck.chol_dinv(K, 8), ck.chol_dinv_plain(K, 8))):
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
-    assert before == (sk.batched_kinv_logdet.launches, ck.chol_dinv.launches)
+    with tracing.recording():
+        for got, want in ((sk.batched_kinv_logdet(K),
+                           sk.batched_kinv_logdet_plain(K)),
+                          (ck.chol_dinv(K, 8), ck.chol_dinv_plain(K, 8))):
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+    counted = tracing.report()["counters"]
+    assert "launches.batched_kinv_logdet" not in counted
+    assert "launches.chol_dinv" not in counted
     meta = torch.empty((2, 4, 4), device="meta")
     with pytest.raises(ValueError):
         sk.batched_kinv_logdet(meta)

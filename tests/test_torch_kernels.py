@@ -15,6 +15,7 @@ from bayesian_cbf_tpu.ops.pallas_chol import (batched_chol_with_inv,
                                               batched_kinv_logdet_chol)
 from bayesian_cbf_tpu.ops.pallas_ipm import batched_ipm
 from bayesian_cbf_tpu.solvers.socp import _pad_cones, _solve_padded_plain
+from bayesian_cbf_tpu_torch.observability import tracing
 from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
 from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
 
@@ -188,17 +189,17 @@ def test_ipm_plain_matches_pallas_interpret_scores():
 
 def test_cpu_tensors_take_the_plain_versions():
     K = torch.tensor(_spd(2, 6, 3))
-    before = (ck.chol_linv.launches, ck.kinv_logdet.launches, ik.ipm.launches)
-    for got, want in ((ck.chol_linv(K), ck.chol_linv_plain(K)),
-                      (ck.kinv_logdet(K), ck.kinv_logdet_plain(K))):
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
     args = [torch.tensor(a) for a in _mixed_cones(2, B=2)]
     args.append(args[-1])
-    for g, w in zip(ik.ipm(*args, 5, 1e-10), ik.ipm_plain(*args, 5, 1e-10)):
-        assert torch.equal(g, w)
-    assert before == (ck.chol_linv.launches, ck.kinv_logdet.launches,
-                      ik.ipm.launches)
+    with tracing.recording():
+        for got, want in ((ck.chol_linv(K), ck.chol_linv_plain(K)),
+                          (ck.kinv_logdet(K), ck.kinv_logdet_plain(K)),
+                          (ik.ipm(*args, 5, 1e-10),
+                           ik.ipm_plain(*args, 5, 1e-10))):
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+    assert not any(k.startswith("launches.")
+                   for k in tracing.report()["counters"])
 
 
 def test_other_devices_raise():

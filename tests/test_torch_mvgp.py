@@ -14,6 +14,7 @@ from bayesian_cbf_tpu.models.mvgp import (MVGPData as JData,
                                           make_mvgp_rank1 as j_rank1)
 from bayesian_cbf_tpu_torch import interop
 from bayesian_cbf_tpu_torch.models.mvgp import MVGPData, make_mvgp_rank1
+from bayesian_cbf_tpu_torch.observability import tracing
 
 B, K, N, MH = 2, 12, 3, 3
 F64 = torch.float64
@@ -168,21 +169,24 @@ def test_factor_ladder_reports_the_rung_each_episode_accepted(assembly):
 
 
 def test_refresh_cache_adds_its_rungs_to_the_count():
-    from bayesian_cbf_tpu_torch.models.mvgp import MVGP
     eps, ps, data_np, params_np = _case(5)
     params = interop.mvgp_params_from_numpy(params_np, "cpu", F64)
     data = _torch_data(data_np)
-    MVGP.refresh_cache.rungs = None
-    make_mvgp_rank1(3, 2).refresh_cache(params, data)
-    assert MVGP.refresh_cache.rungs.tolist() == [B, 0, 0]
-    data_np = {k: v.copy() for k, v in data_np.items()}
-    data_np["X"][0, 1] = data_np["X"][0, 0]
-    data_np["UH"][0, 1] = data_np["UH"][0, 0]
-    make_mvgp_rank1(3, 2, jitter=-1e-3).refresh_cache(
-        params, _torch_data(data_np))
-    seen = MVGP.refresh_cache.rungs.tolist()
+    rungs = lambda: [tracing.report()["counters"].get(f"refresh.rung{i}", 0)
+                     for i in range(3)]
+    with tracing.recording():
+        make_mvgp_rank1(3, 2).refresh_cache(params, data)
+        assert rungs() == [B, 0, 0]
+        data_np = {k: v.copy() for k, v in data_np.items()}
+        data_np["X"][0, 1] = data_np["X"][0, 0]
+        data_np["UH"][0, 1] = data_np["UH"][0, 0]
+        make_mvgp_rank1(3, 2, jitter=-1e-3).refresh_cache(
+            params, _torch_data(data_np))
+    seen = rungs()
     assert sum(seen) == 2 * B and seen[0] < 2 * B
-    MVGP.refresh_cache.rungs = None
+    # no recording open: nothing is counted
+    make_mvgp_rank1(3, 2).refresh_cache(params, data)
+    assert rungs() == seen
 
 
 def test_f32_fit_moves_hyperparameters_on_trajectory_data():

@@ -317,11 +317,7 @@ def test_trace_of_a_cpu_rollout(tmp_path):
     assert tprof.trace.last is not None
 
 
-def test_step_timer_and_elapsed_channel(tmp_path):
-    calls = []
-    best = tprof.step_timer(lambda a: calls.append(a) or torch.ones(2), 3,
-                            reps=4)
-    assert len(calls) == 5 and 0 <= best < 1
+def test_elapsed_channel(tmp_path):
     lg = tl.MetricsLogger(str(tmp_path), ["t"])
     tprof.elapsed_channel(lg, "exp", 0.25, 2)
     tprof.elapsed_channel(lg, "exp/elapsed", 0.5, 3)

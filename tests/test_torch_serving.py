@@ -321,33 +321,32 @@ def test_serving_refreshes_once_full_and_counts_them():
     """Once the reservoir is full each accepted replacement refreshes the
     whole cache (one refresh_cache: its rungs add one episode), a
     rejected one leaves it; while it fills no refresh runs."""
-    from bayesian_cbf_tpu_torch.models.mvgp import MVGP
+    from bayesian_cbf_tpu_torch.observability import tracing
     sim = tu.make_ackermann_tracking_sim(
         numSteps=40, dt=0.01, max_train=4, training_iter=2,
         train_every_n_steps=1000, device="cpu", dtype=F64)
     ctl = CompiledController(sim, tu.STATE_START, device="cpu",
                              continuous_updates=True)
     gp = sim.learned_dynamics.gp
-    MVGP.refresh_cache.rungs = None
-    refreshes = 0
+    refreshes, rungs = 0, 0
     for t in range(14):
         before = ctl.state()[1]
-        ctl.tick(draw=(0, 9, 2)[t % 3] if t >= 5 else None)
+        with tracing.recording():
+            ctl.tick(draw=(0, 9, 2)[t % 3] if t >= 5 else None)
+        rungs += sum(v for k, v in tracing.report()["counters"].items()
+                     if k.startswith("refresh.rung"))
         after = ctl.state()[1]
         accepted = int(after.count_res) > int(before.count_res)
         if accepted and int(before.count_res) >= 4:
             refreshes += 1
-            seen = MVGP.refresh_cache.rungs
             full = gp.refresh_cache(after.params, after.buf)
-            MVGP.refresh_cache.rungs = seen
             for a, b in zip(after.cache, full):
                 assert torch.equal(a, b)
         elif not accepted:
             for a, b in zip(after.cache, before.cache):
                 assert torch.equal(a, b)
-    rungs = MVGP.refresh_cache.rungs
     assert refreshes >= 3
-    assert int(rungs.sum()) == refreshes
+    assert rungs == refreshes
 
 
 def test_should_fit_at_and_observe():
