@@ -67,6 +67,7 @@ DEFAULT_BUCKETS = (
     ("kinv_logdet", "kinv_logdet"),
     ("chol_linv", "chol_linv"),
     ("ipm", "ipm"),
+    ("fit_gram", "fit_gram"),
     ("gram", "gram"),
     ("sweep", "sweep"),
     ("cholsolve", "cholsolve"),

@@ -31,7 +31,9 @@ The spans and counters of the port:
   step, step/moments, step/lqr, step/cones, step/socp, fit (the runners
   and the per-step controllers); controller.episodes / .fallbacks (the
   feasibility gates); adam.episode_iters / .rejected (`mvgp.adam_fit`);
-  launches.<wrapper> (the eight kernel wrappers in `ops/`);
+  launches.<wrapper> (the ten kernel wrappers in `ops/`);
+  gramsolve.recompute (`ops/gramsolve`: CUDA backwards that recompute
+  `km_expr` under autograd instead of the fit-Gram kernels);
   refresh.rung0..2 (`MVGP.refresh_cache`); psd_cholesky.rung<i>
   (`utils/linalg.psd_cholesky`).
 """

@@ -174,6 +174,11 @@ _SIGNATURES = {
         "gram_blocks_per_sm": [_INT] * 2,
         "gram_launch": [_VP] * 4 + [_F32, _VP] + [_INT] * 7 + [_VP],
     },
+    "fit_gram": {
+        "fit_gram_blocks_per_sm": [_INT] * 5,
+        "fit_gram_launch": [_VP] * 7 + [_INT] * 6 + [_VP],
+        "fit_gram_backward_launch": [_VP] * 11 + [_INT] * 7 + [_VP],
+    },
 }
 _SIGNATURES["ipm_exact"] = _SIGNATURES["ipm"]
 KERNEL_SOURCES = tuple(_SIGNATURES)

@@ -27,24 +27,29 @@ def row_chunks(K: int) -> int:
     return -(-(K + (0 if K % 4 == 0 else 3)) // 4)
 
 
-def band_rows(K: int, P: int, rows_per_thread: int = ROWS_PER_THREAD):
+def band_rows(K: int, P: int, rows_per_thread: int = ROWS_PER_THREAD,
+              group: int = 0):
     """(R, G): the rows R of a band, in G groups of threads that own P
     chunks each (G a multiple of 4 where rows are misaligned, so that a
     thread's rows share their alignment), each thread making
-    `rows_per_thread` rows."""
-    G = max(1, THREADS // -(-row_chunks(K) // P))
-    if K % 4 and G >= 4:
-        G -= G % 4
+    `rows_per_thread` rows; with `group`, G groups of that many threads
+    (the fit-Gram kernels: one warp a row, P unused)."""
+    if group:
+        G = max(1, THREADS // group)
+    else:
+        G = max(1, THREADS // -(-row_chunks(K) // P))
+        if K % 4 and G >= 4:
+            G -= G % 4
     return min(K, G * rows_per_thread), G
 
 
 def gram_plan(B: int, K: int, P: int, sms: int, per_sm: int,
-              rows_per_thread: int = ROWS_PER_THREAD):
+              rows_per_thread: int = ROWS_PER_THREAD, group: int = 0):
     """The kernel's cut into work items: (R, G, grid).  An item is a band
     of R consecutive rows of one matrix (`band_rows`); `grid` persistent
     blocks, at most `sms` x `per_sm`, walk the B ceil(K / R) items, block
     g the items [g N / grid, (g + 1) N / grid) of N."""
-    R, G = band_rows(K, P, rows_per_thread)
+    R, G = band_rows(K, P, rows_per_thread, group)
     items = B * -(-K // R)
     return R, G, max(1, min(items, sms * per_sm))
 
@@ -66,15 +71,27 @@ _SMS: dict = {}
 _SHAPES: dict = {}
 
 
+def device_index(device) -> int:
+    """The CUDA device index of `device` (the current one if unnumbered)."""
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def device_sms(device) -> int:
+    """The SM count of a CUDA device, read once per device."""
+    index = device_index(device)
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index) \
+            .multi_processor_count
+    return _SMS[index]
+
+
 def _plan(device, B: int, K: int, n: int, mh: int, rows_per_thread: int):
     """`gram_plan` for this device and shape: the SM count is read once per
     device; the blocks one SM holds and the chunks each thread owns (the
     kernel's instance for (n, 1+m)) once per (n, 1+m)."""
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if index not in _SMS:
-        _SMS[index] = torch.cuda.get_device_properties(index) \
-            .multi_processor_count
+    index = device_index(device)
+    sms = device_sms(device)
     key = (index, n, mh)
     if key not in _SHAPES:
         lib = _build.load("gram")
@@ -85,7 +102,7 @@ def _plan(device, B: int, K: int, n: int, mh: int, rows_per_thread: int):
             raise RuntimeError(f"fused_gram_kb: no block of the kernel fits "
                                f"for n={n}, 1+m={mh}")
     per_sm, P = _SHAPES[key]
-    return gram_plan(B, K, P, _SMS[index], per_sm, rows_per_thread)
+    return gram_plan(B, K, P, sms, per_sm, rows_per_thread)
 
 
 def _launch(Xs, UHB_half, mask, outputscale, jitter: float,

@@ -114,7 +114,8 @@ def pendulum_x0s(dev, B=256, dtype=torch.float32):
 KERNELS = dict(ipm="ipm", kinv_logdet="kinv_logdet", chol_linv="chol_linv",
                chol_dinv="chol_dinv", sweep="batched_kinv_logdet",
                gram="fused_gram_kb", cholsolve_logdet="cholsolve_logdet",
-               solve_with_factor="solve_with_factor")
+               solve_with_factor="solve_with_factor", fit_gram="fit_gram",
+               fit_gram_backward="fit_gram_backward")
 
 
 def counters():

@@ -13,6 +13,7 @@ import torch
 from bayesian_cbf_tpu_torch.observability import tracing
 from bayesian_cbf_tpu_torch.ops import chol_kernels as ck
 from bayesian_cbf_tpu_torch.ops import gram as gm
+from bayesian_cbf_tpu_torch.ops import gramsolve as gs
 from bayesian_cbf_tpu_torch.ops import ipm_kernel as ik
 from bayesian_cbf_tpu_torch.ops import sweep_kernels as sk
 
@@ -552,6 +553,186 @@ def test_new_kernels_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         gm.fused_gram_kb(wide, K, K[:, 0].contiguous(),
                          K[:, 0, 0].contiguous(), 0.0)
+
+
+def _fit_gram_case(dev, B, K, xd, mh, n, seed, dtype=torch.float32):
+    """The fit-Gram's inputs as the MLL makes them: random-walk states (a
+    training buffer), UH = [1, u], UB = UH (s B), inverse lengthscales, a
+    nugget whose diagonal mean is above 1 (so the MLL's nugget carries a
+    gradient), a quarter of the rows masked; Kinv the f64 inverse of Km,
+    S = Kinv Y, dY = Kinv dS and dlogdet, as the backward receives them."""
+    rng = np.random.default_rng(seed)
+    X = np.cumsum(0.3 * rng.normal(size=(B, K, xd)), 1)
+    UH = np.concatenate([np.ones((B, K, 1)),
+                         1.5 * rng.normal(size=(B, K, mh - 1))], -1)
+    sB = np.eye(mh) + 0.2 * rng.normal(size=(mh, mh))
+    UB = UH @ (sB @ sB.T)
+    il = rng.uniform(0.5, 2.0, size=(B, xd))
+    nug = 0.05 + 10 * K * 1.2e-7 * np.mean(np.sum(UB * UH, -1), -1)
+    mask = (rng.uniform(size=(B, K)) > 0.25).astype(float)
+    ins = [torch.tensor(a, dtype=torch.float64)
+           for a in (X, UB, UH, il, nug, mask)]
+    Km = gs.km_expr(*ins)
+    Kinv = torch.linalg.inv(Km)
+    Y = torch.tensor(rng.normal(size=(B, K, n))) * ins[5][..., None]
+    dS = torch.tensor(rng.normal(size=(B, K, n)))
+    extra = [Kinv, Kinv @ dS, Kinv @ Y, torch.tensor(rng.normal(size=B))]
+    return [t.to(dtype=dtype, device=dev).contiguous() for t in ins + extra]
+
+
+# the cells' shapes, K % 4 != 0, each instance's edges in K (a lane holds 2
+# columns to K = 64, 7 to 224, reads them at each entry beyond), widths of
+# 16, mixed widths, B past one wave of blocks
+FIT_GRAM_SHAPES = [(1, 200, 2, 2, 2), (64, 200, 2, 2, 2), (256, 64, 3, 3, 3),
+                   (5, 37, 3, 3, 3), (3, 37, 2, 2, 2), (3, 65, 3, 3, 3),
+                   (2, 224, 3, 3, 3), (2, 225, 2, 2, 2), (2, 50, 16, 16, 16),
+                   (3, 41, 16, 3, 5), (4, 70, 1, 1, 1), (300, 64, 3, 3, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,xd,mh,n", FIT_GRAM_SHAPES)
+def test_fit_gram_kernel_matches_km_expr(cuda, B, K, xd, mh, n):
+    """The forward kernel against `km_expr` in f32 and f64, masked rows
+    at the shapes of FIT_GRAM_SHAPES: within 1e-5 of each entry's
+    magnitude of f32 `km_expr`, and no farther from f64 than twice f32
+    `km_expr` is (exp amplifies the distance's rounding by d2 / 2, so the
+    f32 floor itself reaches 1e-5 where d2 is large)."""
+    X, UB, UH, il, nug, mask = _fit_gram_case(cuda, B, K, xd, mh, n, K)[:6]
+    got = gs.fit_gram(X, UB, UH, il, nug, mask)
+    plain = gs.km_expr(X, UB, UH, il, nug, mask)
+    ins64 = [t.double() for t in (X, UB, UH, il, nug, mask)]
+    want = gs.km_expr(*ins64)
+    scale = gs.km_expr(ins64[0], ins64[1].abs(), ins64[2].abs(), *ins64[3:])
+    torch.cuda.synchronize()
+    # f32: mh multiply-adds, xd squared differences and one expf an entry,
+    # each rounded: 1e-5 of the entry's magnitude
+    scale = scale + 1e-30  # masked entries are exact zeros
+    floor = float(((plain.double() - want).abs() / scale).max())
+    assert float(((got.double() - want).abs() / scale).max()) <= 2 * floor
+    assert float(((got.double() - plain.double()).abs() / scale).max()) \
+        < 1e-5
+
+
+def _fit_backward_want(ins):
+    """(dUB, d inv_ell, d nug) by autograd of `km_expr` in f64 from the
+    f32 inputs, and the magnitude each is a sum of (the same pull-back of
+    |dKm| with |UB|, |UH|)."""
+    X, UB, UH, il, nug, mask, Kinv, dY, S, dl = [t.double() for t in ins]
+    leaves = [a.clone().requires_grad_(True) for a in (UB, il, nug)]
+    Km = gs.km_expr(X, leaves[0], UH, leaves[1], leaves[2], mask)
+    dKm = dl[:, None, None] * Kinv - dY @ S.transpose(-1, -2)
+    want = torch.autograd.grad(Km, leaves, dKm)
+    mag = gs.km_backward_plain(X, UB.abs(), UH.abs(), il, mask, Kinv.abs(),
+                               -dY.abs(), S.abs(), dl.abs())
+    return want, [m.abs() for m in mag]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,xd,mh,n", FIT_GRAM_SHAPES)
+def test_fit_gram_backward_matches_autograd_f64(cuda, B, K, xd, mh, n):
+    """The backward kernel against autograd of `km_expr` in f64, each
+    output within 1e-5 of the magnitude of the terms it sums (f32: each
+    term rounded a few times, sums of at most K^2 terms in trees)."""
+    ins = _fit_gram_case(cuda, B, K, xd, mh, n, K + 1)
+    got = gs.fit_gram_backward(*ins[:4], *ins[5:])
+    want, mag = _fit_backward_want(ins)
+    torch.cuda.synchronize()
+    for name, g, w, m in zip(("dUB", "d inv_ell", "d nug"), got, want, mag):
+        err = float(((g.double() - w).abs() / (m + 1e-30)).max())
+        assert err < 1e-5, (name, err)
+
+
+@pytest.mark.cuda
+def test_fit_gram_kernels_same_bits_twice(cuda):
+    ins = _fit_gram_case(cuda, 300, 200, 2, 2, 2, 3)
+    km = [gs.fit_gram(*ins[:6]) for _ in range(2)]
+    back = [gs.fit_gram_backward(*ins[:4], *ins[5:]) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(km[0].view(torch.int32), km[1].view(torch.int32))
+    for a, b in zip(*back):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fit_gram_kernels_count_launches_and_reject_bad_input(cuda):
+    ins = _fit_gram_case(cuda, 2, 20, 3, 3, 3, 4)
+    with tracing.recording():
+        gs.fit_gram(*ins[:6])
+        gs.fit_gram_backward(*ins[:4], *ins[5:])
+    assert _launches() == {"fit_gram": 1, "fit_gram_backward": 1}
+    # what the kernels do not take goes to the plain versions, uncounted
+    ins64 = [t.double() for t in ins]
+    wide = _fit_gram_case(cuda, 2, 20, 17, 3, 3, 4)
+    with tracing.recording():
+        km64 = gs.fit_gram(*ins64[:6])
+        back64 = gs.fit_gram_backward(*ins64[:4], *ins64[5:])
+        km_wide = gs.fit_gram(*wide[:6])
+    assert _launches() == {}
+    assert torch.equal(km64, gs.km_expr(*ins64[:6]))
+    assert all(torch.equal(a, b) for a, b in zip(
+        back64, gs.km_backward_plain(*ins64[:4], *ins64[5:])))
+    assert torch.equal(km_wide, gs.km_expr(*wide[:6]))
+    with pytest.raises(ValueError):
+        gs.fit_gram_backward(*ins[:4], ins[5], ins[6][:, :, :19], *ins[7:])
+
+
+def _rollout_fit_data(dev, B, K, seed):
+    """A pendulum-like training buffer (x_dim 2, u_dim 1) from random-walk
+    trajectories with controls of a few units, as a rollout fills it."""
+    from bayesian_cbf_tpu_torch.models.mvgp import MVGPData
+    rng = np.random.default_rng(seed)
+    X = np.cumsum(0.05 * rng.normal(size=(B, K, 2)), 1) + [2.0, 0.0]
+    U = 3.0 * rng.normal(size=(B, K, 1))
+    Xdot = np.stack([X[..., 1], -10 * np.sin(X[..., 0]) + U[..., 0]], -1)
+    t = [torch.tensor(a, dtype=torch.float32, device=dev) for a in (X, U,
+                                                                     Xdot)]
+    return MVGPData(X=t[0], UH=torch.cat([torch.ones_like(t[1]), t[1]], -1),
+                    Xdot=t[2] + 0.01 * torch.randn(
+                        t[2].shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed)),
+                    mask=torch.ones((B, K), device=dev))
+
+
+@pytest.mark.cuda
+def test_mvgp_fit_runs_the_fit_gram_kernels_and_moves_the_learner(cuda):
+    """A recorded `MVGP.fit` at (64, 200) on rollout-like Grams: one launch
+    of each fit-Gram kernel per Adam iteration, no recomputed backward,
+    every episode's hyperparameters moved and finite, the loss lower; and
+    its first gradient (the nugget carrying one: the Gram's diagonal mean
+    is above 1) within 1e-3 of the recompute route's (taken where X wants
+    a gradient)."""
+    from bayesian_cbf_tpu_torch.models.mvgp import make_mvgp
+    gp = make_mvgp(2, 1, fit_inverse="sweep_full")
+    data = _rollout_fit_data(cuda, 64, 200, 5)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    p0 = gp.init_params(64, gen, cuda, torch.float32)
+    diag = torch.sum((data.UH @ (p0.outputscale[:, None, None] * p0.B))
+                     * data.UH, -1).abs().mean(-1)
+    assert bool((diag > 1).all())
+    iters = 25
+    with tracing.recording():
+        p1 = gp.fit(p0, data, training_iter=iters)
+    counters = tracing.report()["counters"]
+    assert counters.get("launches.fit_gram") == iters
+    assert counters.get("launches.fit_gram_backward") == iters
+    assert counters.get("gramsolve.recompute", 0) == 0
+    for a, b in zip(p0, p1):
+        assert bool(torch.isfinite(b).all())
+        moved = (a - b).abs().reshape(a.shape[0], -1).amax(-1)
+        assert bool((moved > 0).all())
+    assert float(gp.mll(p1, data).mean()) > float(gp.mll(p0, data).mean())
+
+    def grads(data):
+        leaves = [a.clone().requires_grad_(True) for a in p0]
+        loss = -gp.mll(type(p0)(*leaves), data).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    fused = grads(data)
+    with tracing.recording():
+        plain = grads(data._replace(X=data.X.clone().requires_grad_(True)))
+    assert tracing.report()["counters"].get("gramsolve.recompute") == 1
+    for g, h in zip(fused, plain):
+        assert _rel(g, h) < 1e-3
 
 
 @pytest.mark.cuda

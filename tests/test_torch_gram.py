@@ -194,12 +194,17 @@ def test_gram_plan_covers_every_row_once(B, K):
     `first_item`), item it the rows [(it % bands) R, + R) of matrix
     it / bands.  Every row of every matrix in exactly one item of exactly
     one block, no more blocks than the SMs hold, every block with an
-    item."""
-    for P, sms, per_sm in ((2, 132, 2), (1, 132, 1), (2, 5, 3)):
-        R, G, grid = gm.gram_plan(B, K, P, sms, per_sm)
+    item.  Also with row groups of one warp (csrc/fit_gram.cu)."""
+    for P, sms, per_sm, group in ((2, 132, 2, 0), (1, 132, 1, 0),
+                                  (2, 5, 3, 0), (1, 132, 4, 32)):
+        R, G, grid = gm.gram_plan(B, K, P, sms, per_sm, group=group)
         assert 1 <= R <= K and 1 <= grid <= sms * per_sm
-        assert G * -(-gm.row_chunks(K) // P) <= gm.THREADS or G == 1
-        if K % 4 and G >= 4:
+        if group:
+            assert G == gm.THREADS // group
+            assert R == min(K, G * gm.ROWS_PER_THREAD)
+        else:
+            assert G * -(-gm.row_chunks(K) // P) <= gm.THREADS or G == 1
+        if K % 4 and G >= 4 and not group:
             assert G % 4 == 0
         bands = -(-K // R)
         assert (bands - 1) * R < K <= bands * R
